@@ -7,27 +7,44 @@ Phases:
 
 1. env     -- the card's name and power limit (nvidia-smi), torch / CUDA
               versions, the TF32 settings this run uses (both off).
-2. build   -- compile the three CUDA kernels from ``foundationstereo_torch/csrc``
+2. build   -- compile the four CUDA kernels from ``foundationstereo_torch/csrc``
               (one nvcc per source, in parallel) and print the build seconds.
 3. kernels -- each kernel against its plain PyTorch twin on the card, at the
               shapes of the main path (ViT-L, max_disp 416, 736x1280): max abs
-              error against the stated tolerance (and relative to max |twin|), kernel / plain / library
-              times (CUDA events) and the least time the card could take
-              (``bound_ms``, from the bytes and operations of this run's inputs).
-4. path    -- the whole forward at a reduced size (448x672, 4 iterations),
-              once through the kernels and once through the plain twins with
-              the same weights and bf16 pyramids on both; the disparities
-              must agree.
+              error against the stated tolerance (and relative to max |twin|),
+              kernel / plain / library times (CUDA events) and the least time
+              the card could take (``bound_ms``, from the bytes and operations
+              of this run's inputs). The 3x3 conv (K4) is held at five shapes
+              of the main path (the largest refinement conv, a ragged F = 127,
+              the 1/16 level, the hourglass's (1, 3, 3) conv on the 5D volume,
+              and the largest conv again in fp32).
+4. path    -- the whole forward at a reduced size (448x672, 4 iterations)
+              through the kernels, through the kernels with the 3x3 conv
+              kernel (``pallas_conv3x3``), and through the plain twins, with
+              the same weights and bf16 pyramids; both kernel runs must agree
+              with the plain one.
 5. serve   -- the full configuration (ViT-L, max_disp 416, bf16, seeded
               random weights) answers 3 requests of 736x1280 pairs through
               ``inference.demo.run_pair`` with 32 iterations; the output must
               be finite and of the right shape, and the launch counts must be
-              1 cost-volume, 24 attention and 32 lookup launches per pair.
+              1 cost-volume, 24 attention and 32 lookup launches per pair (no conv
+              launches: the served configuration keeps pallas_conv3x3 off).
+6. demo    -- the same configuration with ``pallas_conv3x3`` answers demo
+              requests through ``inference.demo.infer``: 2 pinhole pairs of
+              736x1280 with the hierarchical two-pass (depth and a point cloud
+              with outlier removal, written to a temporary directory) and 1
+              panorama pair of 640x1280 in one pass; disparities finite and of
+              the input's shape, clouds non-empty, and per pass 1 cost-volume,
+              24 attention, 32 lookup and K4_OUTSIDE + 32 x K4_PER_ITER conv
+              launches.
 
-It then prints the ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, "device": {...}}`` line. Any failed check raises, so the exit
-code is non-zero and no result line is printed. Without a CUDA device it exits
-with code 1 before any phase.
+``--profile`` adds a per-module and per-op time breakdown of one 736x1280 pair
+for the served configuration and for the one with the 3x3 conv kernel.
+
+It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
+demo phase) and, last, the ``{"ok": true, "device": {...}}`` line. Any failed
+check raises, so the exit code is non-zero and no result line is printed.
+Without a CUDA device it exits with code 1 before any phase.
 """
 
 from __future__ import annotations
@@ -50,6 +67,13 @@ MAIN = dict(vit_size="vitl", max_disp=416, height=736, width=1280, iters=32)
 # tokens, so the attention kernel runs.
 PATH = dict(height=448, width=672, iters=4)
 REQUESTS = 3
+# Demo phase: pinhole pairs through the hierarchical two-pass, then one
+# equirectangular (2:1) panorama pair in one pass.
+DEMO = dict(pinhole=2, panorama_hw=(640, 1280), fx=1000.0, baseline=0.12)
+# Routed 3x3 convs of ViT-L per pass, outside the refinement loop and per
+# iteration: the counts tests/test_torch_conv3x3.py holds against the JAX
+# package's routing.
+K4_OUTSIDE, K4_PER_ITER = 53, 16
 
 
 def log(msg: str) -> None:
@@ -271,8 +295,99 @@ def check_attention(dev, gen) -> dict:
                 fp32_max_abs_err=err32, fp32_ms=fp32_ms, fp32_bound_ms=fp32_bound_ms)
 
 
+def _conv_case(dev, gen, c, f, spatial, dtype):
+    import torch
+
+    x = torch.randn(1, c, *spatial, device=dev, generator=gen).to(dtype)
+    w = torch.randn(f, c, 3, 3, device=dev, generator=gen) / math.sqrt(9 * c)
+    bias = 0.1 * torch.randn(f, device=dev, generator=gen)
+    return x, w, bias
+
+
+def _conv_errors(x, w, bias, out, ref):
+    """(max abs err, mean abs err, per-element check, mean check) of the
+    kernel's output against the twin's.
+
+    Per element: both sum the same 9*C exact products in fp32 in another
+    order, so each is within (K - 1) * 2^-24 * S of the exact sum (K = 9*C
+    terms, S = sum of |x * w| + |bias|, recursive summation); the two within
+    twice that. bf16 outputs then round once each: 1 bf16 ulp of the larger.
+    Mean: a skipped tap, row or channel moves the mean error by a sizeable
+    part of mean |ref|; rounding and order alone keep it under half the
+    mean bf16 ulp of |ref| (bf16) or 1e-5 x mean |ref| (fp32).
+    """
+    import torch
+
+    from foundationstereo_torch.ops import kernels
+
+    k = 9 * x.shape[1]
+    s = kernels.conv3x3_plain(x.float().abs(), w.to(x.dtype).float().abs(), bias.abs())
+    o32, r32 = out.float(), ref.float()
+    diff = (o32 - r32).abs()
+    tol = 2 * (k - 1) * 2.0 ** -24 * s
+    if x.dtype == torch.bfloat16:
+        tol = tol + bf16_ulp(torch.maximum(o32.abs(), r32.abs()))
+        mean_tol = 0.5 * float(bf16_ulp(r32).mean())
+    else:
+        mean_tol = 1e-5 * float(r32.abs().mean())
+    mean_err = float(diff.mean())
+    return float(diff.max()), mean_err, bool((diff <= tol).all()), mean_err <= mean_tol
+
+
+def check_conv3x3(dev, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from foundationstereo_torch.ops import kernels
+
+    h4, w4 = MAIN["height"] // 4, MAIN["width"] // 4
+    d32, h32, w32 = MAIN["max_disp"] // 32, MAIN["height"] // 32, MAIN["width"] // 32
+    cases = [  # (name, C, F, spatial after the channel axis, dtype)
+        ("gru04.conv1 512->512", 512, 512, (h4, w4), torch.bfloat16),
+        ("encoder.conv 320->127", 320, 127, (h4, w4), torch.bfloat16),
+        ("gru16 z/r 384->256", 384, 256, (h4 // 4, w4 // 4), torch.bfloat16),
+        ("hourglass (1,3,3) 168->168, 5D", 168, 168, (d32, h32, w32), torch.bfloat16),
+        ("gru04.conv1 512->512 fp32", 512, 512, (h4, w4), torch.float32),
+    ]
+    row = None
+    for name, c, f, spatial, dtype in cases:
+        x, w, bias = _conv_case(dev, gen, c, f, spatial, dtype)
+        packed = kernels.pack_conv3x3_weight(w, dtype)
+        out = kernels.conv3x3(x, w, bias, packed)
+        ref = kernels.conv3x3_plain(x, w, bias)
+        torch.cuda.synchronize()
+        err, mean_err, ok, mean_ok = _conv_errors(x, w, bias, out, ref)
+        ms = cuda_ms(lambda: kernels.conv3x3(x, w, bias, packed), 10)
+        x4 = x if x.ndim == 4 else x.transpose(1, 2).reshape(-1, c, *spatial[1:])
+        wl, bl = w.to(dtype), bias.to(dtype)
+        library_ms = cuda_ms(lambda: F.conv2d(x4, wl, bl, padding=1), 10)
+        flops = 2.0 * 9 * c * f * x[0, 0].numel()
+        nbytes = (x.numel() + 9 * c * f + out.numel()) * x.element_size() + 4 * f
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        log(f"[kernels] conv3x3 {name} {tuple(x.shape)}: max abs err {err:.3g}, mean abs err "
+            f"{mean_err:.3g} (per element <= 1 bf16 ulp + 2(9C-1) 2^-24 sum|x w| -> {ok}; "
+            f"mean -> {mean_ok}); {ms:.4g} ms, F.conv2d {library_ms:.4g} ms, bound {b_ms:.4g} ms "
+            f"({b_by}), {flops / ms / 1e9:.4g} TFLOP/s")
+        check(ok and mean_ok, f"conv3x3 {name} disagrees with its twin")
+        if row is None:                              # the largest bf16 conv is the row's shape
+            plain_ms = cuda_ms(lambda: kernels.conv3x3_plain(x, w, bias), 2)
+            row = dict(name="conv3x3", route="cuda", source="foundationstereo_torch/csrc/conv3x3.cu",
+                       replaces="foundationstereo_tpu/ops/conv3x3.py:86", shape=list(x.shape) + [f],
+                       max_abs_err=err, max_rel_err=err / float(ref.float().abs().max()),
+                       mean_abs_err=mean_err,
+                       tolerance="per element 1 bf16 ulp + 2(9C-1) 2^-24 sum|x w|; mean <= 0.5 "
+                                 "mean bf16 ulp",
+                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       library_ms=library_ms, cases={})
+        row["cases"][name] = dict(max_abs_err=err, mean_abs_err=mean_err, ms=ms,
+                                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+        del x, out, ref, packed
+        torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5
+# phases 4, 5 and 6
 # ---------------------------------------------------------------------------
 
 
@@ -285,7 +400,8 @@ def make_pair(h, w, seed):
 
 
 def check_path(dev) -> None:
-    """Kernels against plain twins through the whole forward, same weights."""
+    """Kernels (without and with the 3x3 conv kernel) against the plain
+    twins through the whole forward, same weights."""
     import torch
 
     from foundationstereo_torch.config import ModelConfig
@@ -295,20 +411,23 @@ def check_path(dev) -> None:
     h, w, iters = PATH["height"], PATH["width"], PATH["iters"]
     cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=True)
     left, right = make_pair(h, w, 1)
+    runs = {"kernels": cfg, "kernels + conv3x3": cfg.replace(pallas_conv3x3=True),
+            "plain": cfg.replace(use_pallas=False)}
     outs = {}
-    for use_pallas in (True, False):
-        model = FoundationStereo(cfg.replace(use_pallas=use_pallas), device=dev, seed=0)
-        model.pyramid_dtype = torch.bfloat16     # both paths store the pyramids in bf16
-        outs[use_pallas] = run_pair(model, left, right, iters=iters).float()
+    for name, c in runs.items():
+        model = FoundationStereo(c, device=dev, seed=0)
+        model.pyramid_dtype = torch.bfloat16     # every path stores the pyramids in bf16
+        outs[name] = run_pair(model, left, right, iters=iters).float()
         del model
         torch.cuda.empty_cache()
-    diff = (outs[True] - outs[False]).abs()
-    mean, p99, mx = float(diff.mean()), float(torch.quantile(diff.flatten(), 0.99)), float(diff.max())
-    log(f"[path] {h}x{w}, {iters} iterations: kernels vs plain twins |d disp| mean {mean:.4g} px, "
-        f"p99 {p99:.4g} px, max {mx:.4g} px; disparity mean {float(outs[False].mean()):.4g} px "
-        f"(tolerance: mean <= 0.05 px, p99 <= 0.5 px)")
-    check(bool(torch.isfinite(outs[True]).all()), "non-finite disparity on the kernel path")
-    check(mean <= 0.05 and p99 <= 0.5, "kernel path disagrees with the plain path")
+    for name in ("kernels", "kernels + conv3x3"):
+        diff = (outs[name] - outs["plain"]).abs()
+        mean, p99 = float(diff.mean()), float(torch.quantile(diff.flatten(), 0.99))
+        log(f"[path] {h}x{w}, {iters} iterations: {name} vs plain twins |d disp| mean {mean:.4g} px, "
+            f"p99 {p99:.4g} px, max {float(diff.max()):.4g} px; disparity mean "
+            f"{float(outs['plain'].mean()):.4g} px (tolerance: mean <= 0.05 px, p99 <= 0.5 px)")
+        check(bool(torch.isfinite(outs[name]).all()), f"non-finite disparity on the {name} path")
+        check(mean <= 0.05 and p99 <= 0.5, f"the {name} path disagrees with the plain path")
 
 
 def serve(dev, requests: int, profile: bool = False) -> dict:
@@ -344,11 +463,100 @@ def serve(dev, requests: int, profile: bool = False) -> dict:
         f"launches {launches}")
     want = {"cost_volume_parts": requests,
             "flash_attention": requests * VIT_CONFIGS[MAIN["vit_size"]]["depth"],
-            "disparity_lookup": requests * MAIN["iters"]}
+            "disparity_lookup": requests * MAIN["iters"], "conv3x3": 0}
     check(launches == want, f"launch counts {launches}, expected {want}")
     if profile:
+        log("[profile] the served configuration (pallas_conv3x3=False: convs through cuDNN):")
         profile_pair(model, pairs[0])
     return launches
+
+
+def demo(dev, profile: bool = False) -> dict:
+    """This slice's path: demo requests through ``inference.demo.infer`` with
+    the 3x3 conv kernel on, hierarchical pinhole pairs and a panorama."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.inference.demo import infer
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.ops import kernels
+
+    cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=True,
+                      pallas_conv3x3=True)
+    model = FoundationStereo(cfg, device=dev, seed=0)
+    H, W = MAIN["height"], MAIN["width"]
+    K = np.array([[DEMO["fx"], 0, W / 2], [0, DEMO["fx"], H / 2], [0, 0, 1]], np.float32)
+    requests = []
+    for i in range(DEMO["pinhole"]):
+        left, right = (a[0].astype(np.uint8) for a in make_pair(H, W, 200 + i))
+        requests.append(("pinhole", left, right, dict(K=K, baseline=DEMO["baseline"], hiera=True)))
+    left, right = (a[0].astype(np.uint8) for a in make_pair(*DEMO["panorama_hw"], 300))
+    requests.append(("panorama", left, right, dict(baseline=DEMO["baseline"], hiera=False)))
+
+    per_pass = {"cost_volume_parts": 1, "flash_attention": VIT_CONFIGS[MAIN["vit_size"]]["depth"],
+                "disparity_lookup": MAIN["iters"], "conv3x3": K4_OUTSIDE + MAIN["iters"] * K4_PER_ITER}
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, left, right, kw in requests:
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            out = infer(model, left, right, camera_type=kind, valid_iters=MAIN["iters"], out_dir=tmp,
+                        **kw)
+            secs = time.perf_counter() - t0
+            got = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+            passes = 2 if kw["hiera"] else 1
+            want = {k: n * passes for k, n in per_pass.items()}
+            pts = out["points"]
+            log(f"[demo] {kind} {left.shape[0]}x{left.shape[1]}{' hierarchical' if passes == 2 else ''}: "
+                f"{secs:.4f} s (network {out['seconds']['network']:.4f} s, host numpy "
+                f"{out['seconds']['host']:.4f} s), disparity mean {float(np.mean(out['disp'])):.4g} px, "
+                f"{len(pts)} points ({int(out['keep'].sum())} after outlier removal), "
+                f"launches {got}")
+            check(out["disp"].shape == left.shape[:2], f"disparity shape {out['disp'].shape}")
+            check(bool(np.isfinite(out["disp"]).all()), "non-finite disparity")
+            check(len(pts) > 0 and bool(np.isfinite(pts).all()), "empty or non-finite point cloud")
+            if kind == "pinhole":
+                check(out["depth"].shape == left.shape[:2], "depth shape")
+            check(got == want, f"launch counts {got}, expected {want}")
+    launches = dict(kernels.LAUNCHES)
+    log(f"[demo] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+        f"launches {launches}")
+    if profile:
+        log("[profile] the configuration with the 3x3 conv kernel (pallas_conv3x3=True):")
+        profile_pair(model, make_pair(H, W, 100))
+    return launches
+
+
+def k4_work_hooks(model, work: dict) -> list:
+    """Forward pre-hooks that add each routed 3x3 conv's launches and the
+    least time of each launch (bytes: input, weight and output once; operations:
+    2 * 9 * C * F per output pixel) to ``work``. Returns the hook handles."""
+    import torch
+
+    def add(x, c, f, n_pix, launches, esize):
+        peak = BF16_FLOPS if esize == 2 else FP32_FLOPS
+        for _ in range(launches):
+            b_ms, _by = bound((x.numel() + 9 * c * f + f * n_pix) * esize, 2.0 * 9 * c * f * n_pix, peak)
+            work["launches"] += 1
+            work["flop"] += 2.0 * 9 * c * f * n_pix
+            work["bound_ms"] += b_ms
+
+    def hook(m, args):
+        esize = torch.finfo(getattr(m, "cdt", None) or m.convz.cdt).bits // 8
+        if hasattr(m, "convz"):                          # the fused z/r conv of a GRU
+            hx = args[2]
+            add(hx, hx.shape[1], 2 * m.convz.out_channels, hx[:, 0].numel(), 1, esize)
+        else:
+            x = args[0]
+            launches = m.kernel_size[0] if m.k4 == "taps" else 1
+            add(x, m.in_channels, m.out_channels, x[:, 0].numel(), launches, esize)
+
+    return [m.register_forward_pre_hook(hook) for m in model.modules() if getattr(m, "k4", None)]
 
 
 def profile_pair(model, pair) -> None:
@@ -379,6 +587,8 @@ def profile_pair(model, pair) -> None:
     for name, child in model.named_children():
         handles += [child.register_forward_pre_hook(pre(name)),
                     child.register_forward_hook(post(name))]
+    work = dict(launches=0, flop=0.0, bound_ms=0.0)
+    handles += k4_work_hooks(model, work)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     run_pair(model, *pair, iters=MAIN["iters"])
@@ -386,6 +596,10 @@ def profile_pair(model, pair) -> None:
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
+    if work["launches"]:
+        log(f"[profile] conv3x3 work of the pair: {work['launches']} launches, "
+            f"{work['flop'] / 1e12:.4g} TFLOP, least time {work['bound_ms']:.4g} ms (the sum of each "
+            f"launch's bound)")
     total = start.elapsed_time(end)
     per = {n: sum(a.elapsed_time(b) for a, b in evs) for n, evs in spans.items()}
     per["(outside modules: cost volume, pyramids, lookups, glue)"] = total - sum(per.values())
@@ -410,10 +624,11 @@ def profile_pair(model, pair) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,path,serve",
-                    help="comma-separated subset of env,build,kernels,path,serve")
+    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo",
+                    help="comma-separated subset of env,build,kernels,path,serve,demo")
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, time one more pair per module and under torch.profiler")
+                    help="time one more 736x1280 pair per module and under torch.profiler, for "
+                         "the served configuration and for the one with the 3x3 conv kernel")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -442,22 +657,29 @@ def main() -> int:
     rows = []
     if "kernels" in phases:
         gen = torch.Generator(device=dev).manual_seed(0)
-        for fn in (check_cost_volume, check_lookup, check_attention):
+        for fn in (check_cost_volume, check_lookup, check_attention, check_conv3x3):
             rows.append(fn(dev, gen))
             torch.cuda.empty_cache()
     if "path" in phases:
         t0 = time.perf_counter()
         check_path(dev)
         log(f"[path] {time.perf_counter() - t0:.1f} s")
-    launches = {}
+    served = {}
     if "serve" in phases:
         t0 = time.perf_counter()
-        launches = serve(dev, REQUESTS, args.profile)
+        served = serve(dev, REQUESTS, args.profile)
         log(f"[serve] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    launches = {}
+    if "demo" in phases:
+        t0 = time.perf_counter()
+        launches = demo(dev, args.profile)
+        log(f"[demo] {time.perf_counter() - t0:.1f} s")
     for row in rows:
         row["launches"] = launches.get(row["name"], 0)
-        if "serve" in phases:
-            check(row["launches"] > 0, f"{row['name']} never launched on the main path")
+        row["serve_launches"] = served.get(row["name"], 0)
+        if "demo" in phases:
+            check(row["launches"] > 0, f"{row['name']} never launched on the demo path")
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

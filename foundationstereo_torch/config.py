@@ -6,16 +6,19 @@ with the same field names, so the same JSON configs load into both.
 Fields that select TPU-only code paths are accepted and have no effect here:
 ``remat_filter``, ``remat_refine``, ``scan_upsample``, ``scan_upsample_chunk``
 (training-path memory knobs; the train-mode forward is not ported yet),
-``pallas_conv3x3`` (the 3x3 conv kernel is not ported yet), ``fused_lookup``
-and ``gather_lookup`` (the port has one lookup kernel that covers all levels
-in one launch with a direct gather, whatever these say), ``pallas_cost_volume``
-and ``fused_cost_proj`` (the port always builds the cost volume as parts when
-``use_pallas`` is set).
+``fused_lookup`` and ``gather_lookup`` (the port has one lookup kernel that
+covers all levels in one launch with a direct gather, whatever these say),
+``pallas_cost_volume`` and ``fused_cost_proj`` (the port always builds the
+cost volume as parts when ``use_pallas`` is set).
 
 ``use_pallas`` selects the hand-written CUDA kernels: on CUDA tensors the
 cost-volume build, the disparity lookup and the ViT flash attention run as
 kernels; with ``use_pallas=False`` the model runs the plain PyTorch forms
 everywhere (the counterpart of the JAX package's XLA forms).
+``pallas_conv3x3`` (default off, as in the JAX package) adds the 3x3 conv
+kernel when ``use_pallas`` is set: every 3x3/s1/p1 conv with C >= 128 and
+F >= 64 runs through it, in bf16 or fp32 (the JAX package's rule and forms,
+``models/layers.py:k4_eligible``); the other convs stay with PyTorch.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ class ModelConfig:
     pallas_cost_volume: bool = True   # inert
     fused_lookup: bool = False        # inert
     gather_lookup: bool = False       # inert
-    pallas_conv3x3: bool = False      # inert
+    pallas_conv3x3: bool = False      # with use_pallas: eligible 3x3 convs through K4
     # bf16 geometry/correlation pyramids on the kernel path (use_pallas; fp32
     # accumulation inside the lookup kernel), as the JAX package's kernel
     # path does; the plain path keeps fp32 pyramids.

@@ -16,7 +16,9 @@ accumulates in fp32), on the plain path in fp32.
 With ``use_pallas`` the cost-volume build and the lookup go through the
 kernel wrappers in ``ops/kernels.py`` (CUDA kernels on the card, their
 plain twins on the CPU); without it the model calls the plain twins
-directly. Nothing else changes between the two.
+directly. With ``use_pallas`` and ``pallas_conv3x3`` the constructor also
+marks the eligible 3x3 convs (``models/layers.py:route_conv3x3``), which
+then run through the conv kernel. Nothing else changes between the paths.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from foundationstereo_torch.models.layers import (
     ConvTranspose2d,
     FeatureAtt,
     SpatialAttentionExtractor,
+    route_conv3x3,
 )
 from foundationstereo_torch.models.update import BasicSelectiveMultiUpdateBlock
 from foundationstereo_torch.ops import cost_volume, kernels, sampler
@@ -96,6 +99,8 @@ class FoundationStereo(nn.Module):
                 cfg.hidden_dims[0], cfg.n_gru_layers, n_corr, cdt)
             self.spx_2_gru = Conv2x(32, 32, bn=False, cdt=cdt)
             self.spx_gru = nn.Sequential(ConvTranspose2d(64, 9, 4, 2, 1, cdt=cdt))
+        if cfg.use_pallas and cfg.pallas_conv3x3:
+            route_conv3x3(self)
         self.init_weights(torch.Generator(device=device).manual_seed(seed))
         self.eval()
 

@@ -10,6 +10,14 @@ linear layer casts its input and weights to the module's compute dtype
 in fp32 and return fp32 (flax promotes their bf16 inputs with the fp32
 parameters); instance norm computes in fp32 and returns its input's dtype.
 Parameters are stored in fp32.
+
+The 3x3 conv kernel (K4, ``ops/kernels.py:conv3x3``) is opt-in per module:
+``route_conv3x3(model)`` asks every conv to decide from its own shapes
+whether the JAX package's rule (``k4_eligible``) routes it. The forms routed
+are those the JAX package routes under its ``pallas_conv3x3_scope``: the 2D
+conv, the (1, 3, 3) 3D conv with D folded into the batch (the kernel reads
+the (B, C, D, H, W) volume in place through its strides, no copy), and the
+per-tap decomposition of a full 3D conv whose spatial part is 3x3/s1/p1.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
 
 
@@ -36,30 +45,117 @@ def _cast(t, dt):
     return None if t is None else t.to(dt)
 
 
+def k4_eligible(ks, st, pd, dl, groups: int, c: int, f: int) -> bool:
+    """The JAX package's rule for the 3x3 conv kernel
+    (``models/layers.py:_pallas3x3_eligible``): kernel 3x3, stride 1,
+    padding 1, no dilation, no groups, C >= 128 and F >= 64."""
+    return (tuple(ks) == (3, 3) and tuple(st) == (1, 1) and tuple(pd) == (1, 1)
+            and tuple(dl) == (1, 1) and groups == 1 and c >= 128 and f >= 64)
+
+
+def k4_input(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """x in ``dt`` with the contiguous (H, W) planes K4 reads (a copy only
+    for another layout, such as channels-last)."""
+    x = x.to(dt)
+    return x if x.stride(-1) == 1 and x.stride(-2) == x.shape[-1] else x.contiguous()
+
+
+def route_conv3x3(model: nn.Module) -> None:
+    """Route every eligible conv of ``model`` through the 3x3 conv kernel."""
+    for m in model.modules():
+        if hasattr(m, "enable_k4"):
+            m.enable_k4()
+
+
+class PackedWeights:
+    """Weights derived from parameters (cast, fused or packed for K4), made
+    once and made again when a source parameter changes (its ``_version``),
+    moves (its storage) or the compute dtype differs."""
+
+    def __init__(self):
+        self.key, self.value = None, None
+
+    def __call__(self, params, extra, make):
+        key = tuple((p._version, p.data_ptr(), p.device) for p in params) + tuple(extra)
+        if key != self.key:
+            with torch.no_grad():
+                self.value = make()
+            self.key = key
+        return self.value
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in ``cdt``."""
+    """``nn.Conv2d`` computing in ``cdt``; through K4 once ``enable_k4``
+    found it eligible."""
 
     def __init__(self, cin, cout, k, stride=1, padding=0, groups=1, bias=True,
                  cdt=torch.float32):
         super().__init__(cin, cout, k, stride, padding, groups=groups, bias=bias)
         self.cdt = cdt
+        self.k4 = False
+        self._k4_weight = PackedWeights()
+
+    def enable_k4(self):
+        self.k4 = k4_eligible(self.kernel_size, self.stride, self.padding, self.dilation,
+                              self.groups, self.in_channels, self.out_channels)
 
     def forward(self, x):
+        if self.k4:
+            packed = self._k4_weight(
+                [self.weight], [self.cdt],
+                lambda: kernels.pack_conv3x3_weight(self.weight, self.cdt)) if x.is_cuda else None
+            return kernels.conv3x3(k4_input(x, self.cdt), self.weight, _cast(self.bias, self.cdt),
+                                   packed)
         return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
                                   _cast(self.bias, self.cdt))
 
 
 class Conv3d(nn.Conv3d):
-    """``nn.Conv3d`` computing in ``cdt``."""
+    """``nn.Conv3d`` computing in ``cdt``. Once ``enable_k4`` found its
+    spatial part eligible, a (1, 3, 3) conv runs as one K4 call over the
+    volume with D as a batch axis ("fold"), and a full 3D conv as one K4
+    call per depth tap summed with shifts along D ("taps"), as the JAX
+    package's ``Conv`` decomposes it."""
 
     def __init__(self, cin, cout, k, stride=1, padding=0, groups=1, bias=True,
                  cdt=torch.float32):
         super().__init__(cin, cout, k, stride, padding, groups=groups, bias=bias)
         self.cdt = cdt
+        self.k4 = None
+        self._k4_weight = PackedWeights()
+
+    def enable_k4(self):
+        ks, st, pd = self.kernel_size, self.stride, self.padding
+        if (self.dilation == (1, 1, 1) and not isinstance(pd, str)
+                and k4_eligible(ks[1:], st[1:], pd[1:], (1, 1), self.groups,
+                                self.in_channels, self.out_channels)):
+            if ks[0] > 1:
+                self.k4 = "taps"
+            elif st[0] == 1 and pd[0] == 0:
+                self.k4 = "fold"
 
     def forward(self, x):
-        return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
-                                  _cast(self.bias, self.cdt))
+        if self.k4 is None:
+            return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
+                                      _cast(self.bias, self.cdt))
+        x = k4_input(x, self.cdt)
+        kd = self.kernel_size[0]
+        packed = self._k4_weight(
+            [self.weight], [self.cdt],
+            lambda: [kernels.pack_conv3x3_weight(self.weight[:, :, t], self.cdt)
+                     for t in range(kd)]) if x.is_cuda else [None] * kd
+        bias = _cast(self.bias, self.cdt)
+        if self.k4 == "fold":
+            return kernels.conv3x3(x, self.weight[:, :, 0], bias, packed[0])
+        sd, pdd = self.stride[0], self.padding[0]
+        d_out = (x.shape[2] + 2 * pdd - kd) // sd + 1
+        acc = None
+        for t in range(kd):
+            y = F.pad(kernels.conv3x3(x, self.weight[:, :, t], None, packed[t]),
+                      (0, 0, 0, 0, pdd, pdd))
+            y = y[:, :, t:t + sd * (d_out - 1) + 1:sd]
+            acc = y if acc is None else acc + y
+        return acc if bias is None else acc + bias[:, None, None, None]
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):

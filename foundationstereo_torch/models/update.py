@@ -9,7 +9,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from foundationstereo_torch.models.layers import Conv2d, EdgeNextConvEncoder
+from foundationstereo_torch.models.layers import (
+    Conv2d,
+    EdgeNextConvEncoder,
+    PackedWeights,
+    k4_eligible,
+    k4_input,
+)
+from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
 from foundationstereo_torch.ops.upsample import avg_pool2x
 
@@ -34,7 +41,12 @@ class DispHead(nn.Module):
 
 
 class RaftConvGRU(nn.Module):
-    """Conv GRU; z and r read ``hx`` (the fused [x, h] features)."""
+    """Conv GRU; z and r read ``hx`` (the fused [x, h] features).
+
+    As in the JAX package, the z and r gates run as one conv over their
+    weights concatenated along the output channels (the parameters keep the
+    separate ``convz``/``convr`` names); that conv goes through K4 once
+    ``enable_k4`` found its fused shape eligible."""
 
     def __init__(self, hidden_dim, input_dim, k=3, cdt=torch.float32):
         super().__init__()
@@ -42,10 +54,33 @@ class RaftConvGRU(nn.Module):
         self.convz = Conv2d(hidden_dim + input_dim, hidden_dim, k, 1, p, cdt=cdt)
         self.convr = Conv2d(hidden_dim + input_dim, hidden_dim, k, 1, p, cdt=cdt)
         self.convq = Conv2d(hidden_dim + input_dim, hidden_dim, k, 1, p, cdt=cdt)
+        self.k4 = False
+        self._zr = PackedWeights()
+
+    def enable_k4(self):
+        c = self.convz
+        self.k4 = k4_eligible(c.kernel_size, c.stride, c.padding, c.dilation, c.groups,
+                              c.in_channels, 2 * c.out_channels)
+
+    def _zr_weights(self, on_cuda: bool):
+        """(weight, bias, K4 layout or None) of the fused z/r conv in ``cdt``."""
+        cz, cr, cdt = self.convz, self.convr, self.convz.cdt
+
+        def make():
+            w = torch.cat([cz.weight, cr.weight]).to(cdt)
+            packed = kernels.pack_conv3x3_weight(w, cdt) if self.k4 and on_cuda else None
+            return w, torch.cat([cz.bias, cr.bias]).to(cdt), packed
+
+        return self._zr([cz.weight, cr.weight, cz.bias, cr.bias], [cdt, self.k4, on_cuda], make)
 
     def forward(self, h, x, hx):
-        z = torch.sigmoid(self.convz(hx))
-        r = torch.sigmoid(self.convr(hx))
+        w, b, packed = self._zr_weights(hx.is_cuda)
+        if self.k4:
+            zr = kernels.conv3x3(k4_input(hx, self.convz.cdt), w, b, packed)
+        else:
+            zr = F.conv2d(hx.to(self.convz.cdt), w, b, padding=self.convz.padding)
+        d = self.convz.out_channels
+        z, r = torch.sigmoid(zr[:, :d]), torch.sigmoid(zr[:, d:])
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))
         return (1 - z) * h + z * q
 

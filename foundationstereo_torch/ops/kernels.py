@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, load, wrappers, launch counts.
 
-Three kernels, one CUDA C++ source each under ``foundationstereo_torch/csrc``:
+Four kernels, one CUDA C++ source each under ``foundationstereo_torch/csrc``:
 
 =====================  ==========================  ==========================================
 wrapper                source                      TPU kernel it replaces
@@ -8,6 +8,7 @@ wrapper                source                      TPU kernel it replaces
 cost_volume_parts      csrc/cost_volume.cu         ops/pallas_kernels.py:build_cost_volume_pallas
 disparity_lookup       csrc/lookup.cu              ops/pallas_kernels.py:lookup_level_pallas
 flash_attention        csrc/flash_attention.cu     models/dinov2.py:flash_vit_attention
+conv3x3                csrc/conv3x3.cu             ops/conv3x3.py:conv3x3_pallas
 =====================  ==========================  ==========================================
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
@@ -32,6 +33,7 @@ import threading
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from foundationstereo_torch.ops.cost_volume import cost_volume_parts as cost_volume_parts_plain
 from foundationstereo_torch.ops.sampler import disparity_lookup as disparity_lookup_plain
@@ -42,6 +44,7 @@ SOURCES = {
     "cost_volume_parts": "cost_volume.cu",
     "disparity_lookup": "lookup.cu",
     "flash_attention": "flash_attention.cu",
+    "conv3x3": "conv3x3.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -116,11 +119,12 @@ def _lib(name: str):
         return _fns[name]
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "cost_volume_parts": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
     "disparity_lookup": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "flash_attention": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
+    "conv3x3": [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 7 + [_P],
 }
 
 
@@ -250,4 +254,85 @@ def flash_attention(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     err = _lib("flash_attention")(qkv.data_ptr(), out.data_ptr(), b, n, heads, float(scale),
                                   int(qkv.dtype == torch.bfloat16), _stream())
     _check("flash_attention", err)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: 3x3 convolution, stride 1, zero padding 1
+# ---------------------------------------------------------------------------
+
+
+def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
+                  bias: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain twin of the 3x3 conv kernel, the TPU kernel's own math: the sum
+    of 9 shifted (C -> F) contractions with fp32 accumulation (the weight
+    taken in x's dtype, products exact in fp32), ``bias`` added in fp32, one
+    rounding to x's dtype. x (N, C, H, W) or (B, C, D, H, W)."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (1, 1, 1, 1)).float()
+    wf = weight.to(x.dtype).float()
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            term = torch.einsum("nc...,fc->nf...", xp[..., dy:dy + h, dx:dx + w], wf[:, :, dy, dx])
+            acc = term if acc is None else acc + term
+    if bias is not None:
+        acc = acc + bias.float().reshape((-1,) + (1,) * (x.ndim - 2))
+    return acc.to(x.dtype)
+
+
+def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(F, C, 3, 3) -> the kernel's (9, Fp, Cp) layout in ``dtype``: taps
+    major, input channels contiguous, zero-padded to Fp % 128 == 0 and
+    Cp % 16 == 0. Callers cache it (a parameter is packed once)."""
+    f, c = weight.shape[:2]
+    packed = torch.zeros((9, -(-f // 128) * 128, -(-c // 16) * 16), device=weight.device,
+                         dtype=dtype)
+    packed[:, :f, :c] = weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, f, c)
+    return packed
+
+
+def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
+            packed: torch.Tensor | None = None) -> torch.Tensor:
+    """3x3 / stride 1 / zero padding 1 convolution with fp32 accumulation.
+
+    x (N, C, H, W), or (B, C, D, H, W) with D taken as a batch axis (read
+    in place through its strides); weight (F, C, 3, 3); bias (F,) or None,
+    added in fp32 before the one rounding. Returns (N, F, H, W) or (B, F, D,
+    H, W) in x's dtype, float32 or bfloat16. ``packed`` is
+    ``pack_conv3x3_weight(weight, x.dtype)``, made here when not given.
+    """
+    if not _on_cuda(x, weight):
+        return conv3x3_plain(x, weight, bias)
+    _require(x.ndim in (4, 5), f"x shape {tuple(x.shape)}: want (N, C, H, W) or (B, C, D, H, W)")
+    _require(x.dtype in _FLOATS, "x must be float32 or bfloat16")
+    f, c = weight.shape[:2]
+    h, w = x.shape[-2:]
+    _require(tuple(weight.shape) == (f, x.shape[1], 3, 3),
+             f"weight {tuple(weight.shape)} for x {tuple(x.shape)}")
+    _require(x.stride(-1) == 1 and x.stride(-2) == w, "x's (H, W) plane must be contiguous")
+    if x.ndim == 4:
+        n_outer, n_inner, xsi = x.shape[0], 1, 0
+        out = torch.empty((n_outer, f, h, w), device=x.device, dtype=x.dtype)
+        osi = 0
+    else:
+        n_outer, n_inner, xsi = x.shape[0], x.shape[2], x.stride(2)
+        out = torch.empty((n_outer, f, n_inner, h, w), device=x.device, dtype=x.dtype)
+        osi = out.stride(2)
+    _require(0 < n_outer * n_inner <= 65535, f"{n_outer * n_inner} images: at most 65535")
+    if packed is None:
+        packed = pack_conv3x3_weight(weight, x.dtype)
+    _require(packed.ndim == 3 and packed.shape[0] == 9 and packed.shape[1] % 128 == 0
+             and packed.shape[2] % 16 == 0 and packed.shape[1] >= f and packed.shape[2] >= c
+             and packed.dtype == x.dtype and packed.is_contiguous()
+             and packed.data_ptr() % 16 == 0 and packed.device == x.device,
+             "packed must be pack_conv3x3_weight(weight, x.dtype) on x's device")
+    if bias is not None:
+        _require(bias.shape == (f,) and bias.device == x.device, f"bias {tuple(bias.shape)}")
+        bias = bias.float().contiguous()
+    err = _lib("conv3x3")(
+        x.data_ptr(), packed.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
+        n_outer, n_inner, x.stride(0), xsi, x.stride(1), out.stride(0), osi, out.stride(1),
+        c, h, w, f, packed.shape[2], packed.shape[1], int(x.dtype == torch.bfloat16), _stream())
+    _check("conv3x3", err)
     return out

@@ -8,7 +8,9 @@ JAX, so it runs on the card's machine, which has none:
 Tolerances: fp32 outputs 1e-5 (summation order); bf16 outputs 2^-8, one
 bf16 ulp at the largest magnitude (inputs in [-1, 1]); bf16 attention
 against the fp32 twin: max error 2 bf16 ulps of max |ref|, mean error 1 bf16
-ulp of mean |ref| (output rounding and bf16 probabilities in P @ V).
+ulp of mean |ref| (output rounding and bf16 probabilities in P @ V). The 3x3
+conv (outputs of order 1, sums of up to 9*200 exact products in fp32):
+fp32 1e-4, bf16 1 bf16 ulp of the larger magnitude + 1e-4.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ import math
 import pytest
 import torch
 
+from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.models.dinov2 import Attention
+from foundationstereo_torch.models.foundation_stereo import FoundationStereo
 from foundationstereo_torch.ops import cost_volume, kernels, sampler
 
 pytestmark = pytest.mark.gpu
@@ -115,3 +119,89 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.cost_volume_parts(x.transpose(2, 3).contiguous().transpose(2, 3), x,
                                   torch.zeros(1, 12, 4, 16, device=cuda), 8, 8)
+
+
+def _conv_inputs(cuda, seed, c, f, spatial, dtype):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(2, c, *spatial, device=cuda, generator=g).to(dtype)
+    w = torch.randn(f, c, 3, 3, device=cuda, generator=g) / math.sqrt(9 * c)
+    return x, w, 0.1 * torch.randn(f, device=cuda, generator=g)
+
+
+def _assert_conv_close(out, ref):
+    o, r = out.float(), ref.float()
+    tol = 1e-4
+    if out.dtype == torch.bfloat16:
+        a = torch.maximum(o.abs(), r.abs()).clamp_min(2.0 ** -126)
+        tol = torch.exp2(torch.floor(torch.log2(a)) - 7) + 1e-4
+    assert bool(((o - r).abs() <= tol).all()), float((o - r).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,f,h,w", [(136, 127, 7, 45), (200, 70, 9, 33), (128, 256, 4, 32),
+                                     (16, 8, 3, 5)])
+def test_conv3x3_kernel(cuda, dtype, c, f, h, w):
+    x, wt, bias = _conv_inputs(cuda, 5, c, f, (h, w), dtype)
+    kernels.reset_launches()
+    out = kernels.conv3x3(x, wt, bias)
+    assert out.dtype == dtype and out.shape == (2, f, h, w)
+    assert kernels.LAUNCHES["conv3x3"] == 1
+    _assert_conv_close(out, kernels.conv3x3_plain(x, wt, bias))
+    _assert_conv_close(kernels.conv3x3(x, wt), kernels.conv3x3_plain(x, wt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_reads_the_5d_volume_in_place(cuda, dtype):
+    """(B, C, D, H, W): D folded into the batch through the strides, and a
+    view that is not contiguous (every other depth slice)."""
+    x, wt, bias = _conv_inputs(cuda, 6, 168, 168, (6, 7, 20), dtype)
+    for vol in (x, x[:, :, ::2]):
+        out = kernels.conv3x3(vol, wt, bias)
+        assert out.shape == (2, 168, vol.shape[2], 7, 20)
+        want = torch.stack([kernels.conv3x3_plain(vol[:, :, d], wt, bias)
+                            for d in range(vol.shape[2])], dim=2)
+        _assert_conv_close(out, want)
+
+
+def test_conv3x3_errors_raise_and_do_not_fall_back(cuda):
+    x, wt, _ = _conv_inputs(cuda, 7, 128, 64, (4, 8), torch.bfloat16)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="packed"):
+        kernels.conv3x3(x, wt, None, kernels.pack_conv3x3_weight(wt, torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.conv3x3(x.transpose(2, 3), wt.transpose(2, 3).contiguous())
+    # A launch the C side refuses (a weight padded to 100 rows, not 128):
+    # its CUDA error raises, and nothing is counted.
+    packed = torch.zeros(9, 100, 128, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty(2, 64, 4, 8, device=cuda, dtype=torch.bfloat16)
+    err = kernels._lib("conv3x3")(x.data_ptr(), packed.data_ptr(), 0, out.data_ptr(), 2, 1,
+                                  x.stride(0), 0, x.stride(1), out.stride(0), 0, out.stride(1),
+                                  128, 4, 8, 64, 128, 100, 1, kernels._stream())
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels._check("conv3x3", err)
+    assert kernels.LAUNCHES["conv3x3"] == 0
+
+
+@pytest.mark.parametrize("mixed_precision", [False, True])
+def test_model_with_conv3x3_counts_its_launches(cuda, monkeypatch, mixed_precision):
+    """vits with pallas_conv3x3: 36 routed convs outside the loop and 16 per
+    iteration (the counts the CPU tests hold against the JAX package), all
+    launched on the card; the disparity agrees with the cuDNN model's."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = ModelConfig(vit_size="vits", max_disp=64, mixed_precision=mixed_precision)
+    ref = FoundationStereo(cfg, device=cuda, seed=0)
+    model = FoundationStereo(cfg.replace(pallas_conv3x3=True), device=cuda, seed=0)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    left, right = (torch.rand(1, 64, 96, 3, device=cuda, generator=g) * 255 for _ in range(2))
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = model(left, right, iters=2)
+    assert kernels.LAUNCHES["conv3x3"] == 36 + 2 * 16
+    with torch.no_grad():
+        want = ref(left, right, iters=2)
+    diff = (got - want).abs()
+    if mixed_precision:      # the whole-path tolerance of chip_smoke.py
+        assert float(diff.mean()) <= 0.05 and float(torch.quantile(diff.flatten(), 0.99)) <= 0.5
+    else:                    # the CPU parity bound (TF32 off: fp32 throughout)
+        assert float(diff.max()) <= 1e-2

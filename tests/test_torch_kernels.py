@@ -166,4 +166,5 @@ def test_kernel_sources_and_build_paths():
         text = (kernels.CSRC / src).read_text()
         assert "Replaces the TPU kernel" in text and "extern \"C\"" in text
     paths = {kernels._lib_path(src) for src in kernels.SOURCES.values()}
-    assert len(paths) == 3 and all(p.parent == kernels.BUILD_DIR for p in paths)
+    assert len(paths) == len(kernels.SOURCES) == 4
+    assert all(p.parent == kernels.BUILD_DIR for p in paths)
