@@ -37,14 +37,32 @@ Phases:
               the input's shape, clouds non-empty, and per pass 1 cost-volume,
               24 attention, 32 lookup and K4_OUTSIDE + 32 x K4_PER_ITER conv
               launches.
+7. mesh    -- the multi-device path on a data 1 x spatial 4 mesh that names
+              the first card four times (``make_mesh(devices=[cuda:0] * 4)``:
+              each shard runs at the per-device shapes of a 4-card mesh).
+              The width-sharded cost-volume build and lookup (K5) and the
+              head-sharded ViT attention (K3s) against their plain twins for
+              every shard at the main-path shapes, with times and bounds
+              per shard, and their stitched outputs against K1, K2 and K3
+              (bit for bit); then the served configuration answers 3
+              requests through ``run_pair`` under ``mesh_context``: per pair
+              4 build, 128 lookup and 96 attention launches, no K1-K4
+              launches, and the disparity of the unsharded forward on the
+              same pairs, served before and after (their seconds and peak
+              memory are printed beside).
+              With two or more cards the same requests run with the shards
+              on distinct cards and must give the same disparity.
 
 ``--profile`` adds a per-module and per-op time breakdown of one 736x1280 pair
-for the served configuration and for the one with the 3x3 conv kernel.
+for the served configuration, for the one with the 3x3 conv kernel and for
+the served configuration under the mesh.
 
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
-demo phase) and, last, the ``{"ok": true, "device": {...}}`` line. Any failed
-check raises, so the exit code is non-zero and no result line is printed.
-Without a CUDA device it exits with code 1 before any phase.
+phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
+sharded requests for K5 and K3s) and, last, the ``{"ok": true, "device":
+{...}}`` line. Any failed check raises, so the exit code is non-zero and no
+result line is printed. Without a CUDA device it exits with code 1 before
+any phase.
 """
 
 from __future__ import annotations
@@ -74,6 +92,10 @@ DEMO = dict(pinhole=2, panorama_hw=(640, 1280), fx=1000.0, baseline=0.12)
 # iteration: the counts tests/test_torch_conv3x3.py holds against the JAX
 # package's routing.
 K4_OUTSIDE, K4_PER_ITER = 53, 16
+# The mesh phase: data 1 x spatial 4 (make_mesh's factoring of 4 devices).
+MESH_SHARDS = 4
+# ViT tokens at the main path: 736x1280 is resized to 784x1344 patches of 14.
+VIT_TOKENS = (784 // 14) * (1344 // 14) + 1
 
 
 def log(msg: str) -> None:
@@ -218,7 +240,21 @@ def check_lookup(dev, gen) -> dict:
 
     library_ms = cuda_ms(library, 5)
 
-    # Bytes this run's positions need: the in-range part of each 2r+2 window.
+    b_ms, b_by = lookup_bound(geo, corr, disp, r, out)
+    return dict(name="disparity_lookup", route="cuda",
+                source="foundationstereo_torch/csrc/lookup.cu",
+                replaces="foundationstereo_tpu/ops/pallas_kernels.py:112",
+                max_abs_err=err, max_rel_err=rel, tolerance="1 bf16 ulp + 1e-6 per element",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+
+def lookup_bound(geo, corr, disp, r, out, x_offset=0) -> tuple[float, str]:
+    """The lookup's bound from the bytes this run's positions need: the
+    in-range part of each 2r+2 window, the disparities and the output."""
+    import torch
+
+    C = geo[0].shape[3]
+    xs = torch.arange(disp.shape[-1], device=disp.device, dtype=torch.float32) + x_offset
     touched = 0
     for i, (g, c) in enumerate(zip(geo, corr)):
         s = 2.0 ** -i
@@ -226,13 +262,8 @@ def check_lookup(dev, gen) -> dict:
             i0 = torch.floor(x.clamp(-(L + 2 * r + 2), L + 2 * r + 2))
             lo, hi = (i0 - r).clamp(0, L), (i0 + r + 2).clamp(0, L)
             touched += float((hi - lo).clamp_min(0).sum()) * ch
-    nbytes = touched * 2 + disp.numel() * 4 + out.numel() * out.element_size()
-    b_ms, b_by = bound(nbytes, 4.0 * out.numel(), FP32_FLOPS)
-    return dict(name="disparity_lookup", route="cuda",
-                source="foundationstereo_torch/csrc/lookup.cu",
-                replaces="foundationstereo_tpu/ops/pallas_kernels.py:112",
-                max_abs_err=err, max_rel_err=rel, tolerance="1 bf16 ulp + 1e-6 per element",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+    nbytes = touched * geo[0].element_size() + disp.numel() * 4 + out.numel() * out.element_size()
+    return bound(nbytes, 4.0 * out.numel(), FP32_FLOPS)
 
 
 def check_attention(dev, gen) -> dict:
@@ -241,7 +272,7 @@ def check_attention(dev, gen) -> dict:
 
     from foundationstereo_torch.ops import kernels
 
-    B, N, Hh, hd = 2, (784 // 14) * (1344 // 14) + 1, 16, 64
+    B, N, Hh, hd = 2, VIT_TOKENS, 16, 64
     scale = 1.0 / math.sqrt(hd)
     qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
     out = kernels.flash_attention(qkv, scale)
@@ -461,9 +492,10 @@ def serve(dev, requests: int, profile: bool = False) -> dict:
     log(f"[serve] {requests} requests of {MAIN['height']}x{MAIN['width']}, {MAIN['iters']} iterations: "
         f"seconds per pair {[round(t, 4) for t in times]}, peak memory {peak:.2f} GiB, "
         f"launches {launches}")
-    want = {"cost_volume_parts": requests,
-            "flash_attention": requests * VIT_CONFIGS[MAIN["vit_size"]]["depth"],
-            "disparity_lookup": requests * MAIN["iters"], "conv3x3": 0}
+    want = dict.fromkeys(launches, 0)
+    want.update(cost_volume_parts=requests,
+                flash_attention=requests * VIT_CONFIGS[MAIN["vit_size"]]["depth"],
+                disparity_lookup=requests * MAIN["iters"])
     check(launches == want, f"launch counts {launches}, expected {want}")
     if profile:
         log("[profile] the served configuration (pallas_conv3x3=False: convs through cuDNN):")
@@ -510,7 +542,7 @@ def demo(dev, profile: bool = False) -> dict:
             secs = time.perf_counter() - t0
             got = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
             passes = 2 if kw["hiera"] else 1
-            want = {k: n * passes for k, n in per_pass.items()}
+            want = {k: per_pass.get(k, 0) * passes for k in got}
             pts = out["points"]
             log(f"[demo] {kind} {left.shape[0]}x{left.shape[1]}{' hierarchical' if passes == 2 else ''}: "
                 f"{secs:.4f} s (network {out['seconds']['network']:.4f} s, host numpy "
@@ -530,6 +562,272 @@ def demo(dev, profile: bool = False) -> dict:
         log("[profile] the configuration with the 3x3 conv kernel (pallas_conv3x3=True):")
         profile_pair(model, make_pair(H, W, 100))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the multi-device path on a 4-shard mesh
+# ---------------------------------------------------------------------------
+
+
+def _shard_row(name, source, replaces, shards, stitched_equal, **extra) -> dict:
+    """A kernels-line row for a sharded kernel: the per-shard numbers and,
+    at the top level, their means (one launch of a shard)."""
+    def mean(key):
+        return sum(sh[key] for sh in shards) / len(shards)
+
+    by = [sh["bound_by"] for sh in shards]
+    return dict(name=name, route="cuda", source=source, replaces=replaces, phase="mesh",
+                max_abs_err=max(sh["max_abs_err"] for sh in shards), ms=mean("ms"),
+                plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
+                bound_by=max(set(by), key=by.count), stitched_equal=stitched_equal,
+                per="one shard's launch (mean over the shards)", shards=shards, **extra)
+
+
+def check_cost_volume_sharded(dev, gen, mesh) -> dict:
+    """K5's build for each width shard against its twin (K1's tolerance), and
+    the stitched parts against K1's."""
+    import torch
+
+    from foundationstereo_torch.ops import cost_volume, kernels, sharded
+
+    B, C, H, W, G, P, D = 1, 224, MAIN["height"] // 4, MAIN["width"] // 4, 8, 12, MAIN["max_disp"] // 4
+    left, right = (torch.randn(B, C, H, W, device=dev, generator=gen).bfloat16() for _ in range(2))
+    rp = torch.randn(B, P, H, W, device=dev, generator=gen).bfloat16()
+    wl, bf = W // MESH_SHARDS, torch.bfloat16
+    shards = []
+    for j in range(MESH_SHARDS):
+        x0 = j * wl
+        lj = left[..., x0:x0 + wl].contiguous()
+        gk, rk = kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
+        gp, rpp = cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
+        torch.cuda.synchronize()
+        gk32, gp32 = gk.float(), gp.float()
+        err = (gk32 - gp32).abs()
+        ok = bool((err <= bf16_ulp(torch.maximum(gk32.abs(), gp32.abs())) + 2e-6).all())
+        ok = ok and bool(torch.equal(rk, rpp))
+        max_err = max(float(err.max()), float((rk.float() - rpp.float()).abs().max()))
+        del gk32, gp32, err
+        ms = cuda_ms(lambda: kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf), 20)
+        plain_ms = cuda_ms(lambda: cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0,
+                                                                        out_dtype=bf), 3)
+        ws = max(x0 - (D - 1), 0)                     # the right columns this shard reads
+        nbytes = (lj.numel() + B * (C + P) * H * (x0 + wl - ws)) * 2 + (gk.numel() + rk.numel()) * 2
+        pairs = sum(min(D, x0 + w + 1) for w in range(wl))   # (w, d) with x0 + w - d >= 0
+        b_ms, b_by = bound(nbytes, 2.0 * C * B * H * pairs, FP32_FLOPS)
+        log(f"[mesh] cost_volume_parts_haloed shard {j}: x_offset {x0}, {x0 - ws} halo columns, "
+            f"max abs err {max_err:.3g} (tolerance: 1 bf16 ulp + 2e-6 per element, rps exact -> "
+            f"{ok}); {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+        check(ok, f"cost_volume_parts_haloed shard {j} disagrees with its twin")
+        shards.append(dict(shard=j, x_offset=x0, halo_columns=x0 - ws, max_abs_err=max_err, ms=ms,
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+        del gk, rk, gp, rpp
+    got = sharded.cost_volume_parts_sharded(left, right, rp, D, G, mesh, out_dtype=bf)
+    want = kernels.cost_volume_parts(left, right, rp, D, G, out_dtype=bf)
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    sharded_ms = cuda_ms(lambda: sharded.cost_volume_parts_sharded(left, right, rp, D, G, mesh,
+                                                                   out_dtype=bf), 10)
+    log(f"[mesh] cost_volume_parts_sharded ({MESH_SHARDS} shards, stitched on the card) equals K1 "
+        f"bit for bit: {equal}; {sharded_ms:.4g} ms for the whole sharded build")
+    check(equal, "the stitched sharded build differs from K1")
+    return _shard_row("cost_volume_parts_haloed", "foundationstereo_torch/csrc/cost_volume.cu",
+                      "foundationstereo_tpu/ops/pallas_kernels.py:538", shards, equal,
+                      tolerance="1 bf16 ulp + 2e-6 per element (rps exact)", library_ms=None,
+                      sharded_call_ms=sharded_ms)
+
+
+def check_lookup_sharded(dev, gen, mesh) -> dict:
+    """K5's lookup for each width shard against its twin (K2's tolerance),
+    and the stitched output against K2's."""
+    import torch
+
+    from foundationstereo_torch.ops import kernels, sampler, sharded
+
+    r, bf = 4, torch.bfloat16
+    geo, corr, disp = _pyramids(dev, gen, 4, bf)
+    wl = disp.shape[-1] // MESH_SHARDS
+    shards = []
+    for j in range(MESH_SHARDS):
+        x0 = j * wl
+        gj = [g[:, :, x0:x0 + wl].contiguous() for g in geo]
+        cj = [c[:, :, x0:x0 + wl].contiguous() for c in corr]
+        dj = disp[..., x0:x0 + wl].contiguous()
+        out = kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf)
+        ref = sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf, x_offset=x0)
+        torch.cuda.synchronize()
+        o32, r32 = out.float(), ref.float()
+        diff = (o32 - r32).abs()
+        err = float(diff.max())
+        ok = bool((diff <= bf16_ulp(torch.maximum(o32.abs(), r32.abs())) + 1e-6).all())
+        del o32, r32, diff
+        ms = cuda_ms(lambda: kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf), 20)
+        plain_ms = cuda_ms(lambda: sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf,
+                                                            x_offset=x0), 3)
+        b_ms, b_by = lookup_bound(gj, cj, dj, r, out, x0)
+        log(f"[mesh] disparity_lookup_shard shard {j}: x_offset {x0}, out {tuple(out.shape)}, max abs "
+            f"err {err:.3g} (tolerance: 1 bf16 ulp + 1e-6 per element -> {ok}); {ms:.4g} ms, plain "
+            f"{plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+        check(ok, f"disparity_lookup_shard shard {j} disagrees with its twin")
+        shards.append(dict(shard=j, x_offset=x0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by))
+        del gj, cj, out, ref
+    pyr = sharded.shard_pyramids(geo, corr, mesh)
+    got = sharded.disparity_lookup_sharded(pyr, disp, r, bf)
+    equal = bool(torch.equal(got, kernels.disparity_lookup(geo, corr, disp, r, bf)))
+    sharded_ms = cuda_ms(lambda: sharded.disparity_lookup_sharded(pyr, disp, r, bf), 20)
+    cut_ms = cuda_ms(lambda: sharded.shard_pyramids(geo, corr, mesh), 3)
+    log(f"[mesh] disparity_lookup_sharded ({MESH_SHARDS} shards) equals K2 bit for bit: {equal}; "
+        f"{sharded_ms:.4g} ms per iteration (launches, disparity cuts and the gather), "
+        f"{cut_ms:.4g} ms to cut the pyramids (once per pair)")
+    check(equal, "the stitched sharded lookup differs from K2")
+    return _shard_row("disparity_lookup_shard", "foundationstereo_torch/csrc/lookup.cu",
+                      "foundationstereo_tpu/ops/pallas_kernels.py:321", shards, equal,
+                      tolerance="1 bf16 ulp + 1e-6 per element", library_ms=None,
+                      sharded_call_ms=sharded_ms, pyramid_cut_ms=cut_ms)
+
+
+def check_attention_sharded(dev, gen, mesh) -> dict:
+    """K3s for each head shard against the fp32 dense twin (K3's tolerance),
+    and the stitched output against K3's."""
+    import torch
+    import torch.nn.functional as F
+
+    from foundationstereo_torch.ops import kernels, sharded
+
+    B, N, Hh, hd = 2, VIT_TOKENS, 16, 64
+    hl, scale = Hh // MESH_SHARDS, 1.0 / math.sqrt(hd)
+    qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
+    shards = []
+    for j in range(MESH_SHARDS):
+        h0 = j * hl
+        out = kernels.flash_attention_heads(qkv, scale, h0, hl)
+        part = qkv[:, :, :, h0:h0 + hl]
+        ref = kernels.flash_attention_plain(part.float(), scale)
+        torch.cuda.synchronize()
+        diff = (out.float() - ref).abs()
+        err, mean_err = float(diff.max()), float(diff.mean())
+        ref_max, ref_mean = float(ref.abs().max()), float(ref.abs().mean())
+        del diff, ref
+        tol_max = 2 * float(bf16_ulp(torch.tensor(ref_max)))
+        tol_mean = float(bf16_ulp(torch.tensor(ref_mean)))
+        ok = err <= tol_max and mean_err <= tol_mean
+        ms = cuda_ms(lambda: kernels.flash_attention_heads(qkv, scale, h0, hl), 10)
+        plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(part, scale), 3)
+        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in part.unbind(2))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
+        del qs, ks, vs
+        b_ms, b_by = bound((part.numel() + out.numel()) * 2, 4.0 * B * hl * N * N * hd, BF16_FLOPS)
+        log(f"[mesh] flash_attention_heads shard {j}: heads [{h0}, {h0 + hl}), max abs err {err:.3g} "
+            f"(tolerance {tol_max:.3g}), mean abs err {mean_err:.3g} (tolerance {tol_mean:.3g}) vs "
+            f"fp32 dense -> {ok}; {ms:.4g} ms, plain {plain_ms:.4g} ms, SDPA on the slice "
+            f"{library_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+        check(ok, f"flash_attention_heads shard {j} disagrees with the fp32 dense reference")
+        shards.append(dict(shard=j, heads=[h0, h0 + hl], max_abs_err=err, mean_abs_err=mean_err,
+                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                           bound_by=b_by))
+        del out
+    got = sharded.flash_attention_sharded(qkv, scale, mesh)
+    equal = bool(torch.equal(got, kernels.flash_attention(qkv, scale)))
+    sharded_ms = cuda_ms(lambda: sharded.flash_attention_sharded(qkv, scale, mesh), 10)
+    log(f"[mesh] flash_attention_sharded ({MESH_SHARDS} head shards) equals K3 bit for bit: {equal}; "
+        f"{sharded_ms:.4g} ms for the whole sharded call")
+    check(equal, "the stitched sharded attention differs from K3")
+    return _shard_row("flash_attention_heads", "foundationstereo_torch/csrc/flash_attention.cu",
+                      "foundationstereo_tpu/models/dinov2.py:106", shards, equal,
+                      tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of mean |ref|, "
+                                "vs fp32 dense",
+                      library_ms=sum(sh["library_ms"] for sh in shards) / len(shards),
+                      sharded_call_ms=sharded_ms)
+
+
+def serve_pairs(model, pairs, label: str) -> tuple[list, list, float]:
+    """The pairs through ``run_pair``: (disparities, seconds, peak GiB)."""
+    import torch
+
+    from foundationstereo_torch.inference.demo import run_pair
+
+    torch.cuda.reset_peak_memory_stats()
+    outs, times = [], []
+    for left, right in pairs:
+        t0 = time.perf_counter()
+        disp = run_pair(model, left, right, iters=MAIN["iters"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check(tuple(disp.shape) == (1, MAIN["height"], MAIN["width"]), f"shape {tuple(disp.shape)}")
+        check(bool(torch.isfinite(disp).all()), f"non-finite disparity ({label})")
+        outs.append(disp)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[mesh] {label}: seconds per pair {[round(t, 4) for t in times]}, peak memory {peak:.2f} GiB")
+    return outs, times, peak
+
+
+def compare_disparities(label: str, got: list, want: list) -> None:
+    import torch
+
+    for i, (a, b) in enumerate(zip(got, want)):
+        diff = (a.float() - b.float()).abs()
+        mean, p99 = float(diff.mean()), float(torch.quantile(diff.flatten(), 0.99))
+        log(f"[mesh] pair {i}: {label} |d disp| mean {mean:.4g} px, p99 {p99:.4g} px, max "
+            f"{float(diff.max()):.4g} px, equal bit for bit {bool(torch.equal(a, b))} (tolerance: "
+            f"mean <= 0.05 px, p99 <= 0.5 px)")
+        check(mean <= 0.05 and p99 <= 0.5, f"pair {i}: {label} disagree")
+
+
+def mesh_phase(dev, requests: int, profile: bool = False) -> tuple[list, dict]:
+    """The multi-device path: the sharded kernels against their twins and
+    K1-K3, then the served configuration under a 4-shard mesh on one card.
+    Returns the kernels-line rows and the launches of the sharded requests."""
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.parallel import make_mesh, mesh_context
+    from foundationstereo_torch.parallel.sharding import ShardPlan
+
+    mesh = make_mesh(devices=[dev] * MESH_SHARDS)
+    log(f"[mesh] {mesh}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+    for fn in (check_cost_volume_sharded, check_lookup_sharded, check_attention_sharded):
+        rows.append(fn(dev, gen, mesh))
+        torch.cuda.empty_cache()
+
+    cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=True)
+    model = FoundationStereo(cfg, device=dev, seed=0)
+    pairs = [make_pair(MAIN["height"], MAIN["width"], 100 + i) for i in range(requests)]
+    # In turns (unsharded, sharded, unsharded), so that drift shows.
+    serve_pairs(model, pairs, "unsharded, before (the same model and pairs)")
+    kernels.reset_launches()
+    with mesh_context(mesh):
+        outs, _, _ = serve_pairs(model, pairs, f"{MESH_SHARDS}-shard mesh on one card")
+    launches = dict(kernels.LAUNCHES)
+    log(f"[mesh] launches of the {requests} sharded requests: {launches}")
+    vit = VIT_CONFIGS[MAIN["vit_size"]]
+    attn = ShardPlan(mesh, 2, vit["num_heads"], dev)          # both views' tokens, all heads
+    want = dict.fromkeys(launches, 0)
+    want.update(cost_volume_parts_haloed=requests * MESH_SHARDS,
+                disparity_lookup_shard=requests * MESH_SHARDS * MAIN["iters"],
+                flash_attention_heads=requests * attn.n_batch * attn.n_split * vit["depth"])
+    check(launches == want, f"launch counts {launches}, expected {want}")
+
+    ref, _, _ = serve_pairs(model, pairs, "unsharded, after")
+    compare_disparities("sharded vs unsharded", outs, ref)
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = make_mesh(devices=[torch.device("cuda", i % n) for i in range(MESH_SHARDS)])
+        log(f"[mesh] shards on distinct cards: {cards}")
+        with mesh_context(cards):
+            spread, _, _ = serve_pairs(model, pairs, f"{MESH_SHARDS}-shard mesh on {min(n, MESH_SHARDS)} cards")
+        compare_disparities("distinct cards vs one card", spread, outs)
+    else:
+        log("[mesh] one card: the run with the shards on distinct cards did not run")
+    if profile:
+        log("[profile] the served configuration without a mesh (the mesh phase's model):")
+        profile_pair(model, pairs[0])
+        log(f"[profile] the served configuration under the {MESH_SHARDS}-shard mesh on one card:")
+        with mesh_context(mesh):
+            profile_pair(model, pairs[0])
+    return rows, launches
 
 
 def k4_work_hooks(model, work: dict) -> list:
@@ -624,11 +922,12 @@ def profile_pair(model, pair) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo",
-                    help="comma-separated subset of env,build,kernels,path,serve,demo")
+    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh",
+                    help="comma-separated subset of env,build,kernels,path,serve,demo,mesh")
     ap.add_argument("--profile", action="store_true",
                     help="time one more 736x1280 pair per module and under torch.profiler, for "
-                         "the served configuration and for the one with the 3x3 conv kernel")
+                         "the served configuration, the one with the 3x3 conv kernel and the "
+                         "served one under the mesh")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -675,11 +974,20 @@ def main() -> int:
         t0 = time.perf_counter()
         launches = demo(dev, args.profile)
         log(f"[demo] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    mesh_launches = {}
+    if "mesh" in phases:
+        t0 = time.perf_counter()
+        mesh_rows, mesh_launches = mesh_phase(dev, REQUESTS, args.profile)
+        rows += mesh_rows
+        log(f"[mesh] {time.perf_counter() - t0:.1f} s")
+    by_phase = {"demo": launches, "mesh": mesh_launches}
     for row in rows:
-        row["launches"] = launches.get(row["name"], 0)
+        row.setdefault("phase", "demo")
+        row["launches"] = by_phase[row["phase"]].get(row["name"], 0)
         row["serve_launches"] = served.get(row["name"], 0)
-        if "demo" in phases:
-            check(row["launches"] > 0, f"{row['name']} never launched on the demo path")
+        if row["phase"] in phases:
+            check(row["launches"] > 0, f"{row['name']} never launched on the {row['phase']} path")
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

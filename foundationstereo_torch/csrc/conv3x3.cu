@@ -259,7 +259,9 @@ extern "C" int fs_conv3x3(const void* x, const void* wp, const void* bias, void*
   const unsigned tiles = (unsigned)(g.tiles_x * ((H + kTH - 1) / kTH));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    static cudaError_t attr = cudaFuncSetAttribute(
+    // The attribute is per device: set it at every launch (the launch may be
+    // the first on this device).
+    const cudaError_t attr = cudaFuncSetAttribute(
         conv3x3_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (attr != cudaSuccess) return (int)attr;
     dim3 grid(tiles, Fp / kBN, n_outer * n_inner);

@@ -4,13 +4,18 @@
 // Replaces the TPU kernel foundationstereo_tpu/models/dinov2.py:
 // flash_vit_attention, which calls the library's Pallas TPU flash attention
 // (jax.experimental.pallas.ops.tpu.flash_attention) on N padded to 512 and
-// masks the padding with segment ids.
+// masks the padding with segment ids; and, for one shard of the
+// multi-device path, flash_vit_attention_sharded (dinov2.py:106), which runs
+// that kernel on a (batch, heads) shard.
 //
 //   out[b, n, h, :] = softmax_m(scale * q[b, n, h, :] . k[b, m, h, :]) @ v[b, m, h, :]
 //
-// q, k and v are read from the packed qkv projection (B, N, 3, H, 64) as the
-// ViT produces it; out is (B, N, H, 64) in qkv's type, bf16 or fp32, with
-// fp32 softmax statistics and accumulators.
+// q, k and v are read from the packed qkv projection (B, N, 3, HT, 64) as
+// the ViT produces it; the launch covers the H heads [h0, h0 + H) (all of
+// them on one device; a head shard reads its slice in place, no copy) and
+// writes out (B, N, H, 64) in qkv's type, bf16 or fp32, with fp32 softmax
+// statistics and accumulators. A (b, h) pair is the same arithmetic whatever
+// the head range, so head shards stitch to the single launch bit for bit.
 //
 // Bound on the H100: operations (4*N^2*64 FLOP per (b, h); at N = 5377 the
 // arithmetic intensity is ~N/2 FLOP per byte, far above the card's ~295).
@@ -66,17 +71,17 @@ __device__ __forceinline__ uint32_t pack_pair(__nv_bfloat16 lo, __nv_bfloat16 hi
 
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-                 int N, int H, float scale_log2) {
+                 int N, int H, int HT, int h0, float scale_log2) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBk * kLds];
   __shared__ __align__(16) __nv_bfloat16 vs[kBk * kLds];
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;  // h: the output head
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;  // mma fragment row group / thread in group
-  const size_t tok = (size_t)3 * H * kHd;  // token stride in qkv
-  const __nv_bfloat16* qb = qkv + (size_t)b * N * tok + (size_t)h * kHd;
-  const __nv_bfloat16* kb = qb + (size_t)H * kHd;
-  const __nv_bfloat16* vb = qb + (size_t)2 * H * kHd;
+  const size_t tok = (size_t)3 * HT * kHd;  // token stride in qkv
+  const __nv_bfloat16* qb = qkv + (size_t)b * N * tok + (size_t)(h0 + h) * kHd;
+  const __nv_bfloat16* kb = qb + (size_t)HT * kHd;
+  const __nv_bfloat16* vb = qb + (size_t)2 * HT * kHd;
 
   const int r0 = blockIdx.x * kBq + warp * 16 + g;  // this thread's two rows
   const int r1 = r0 + 8;
@@ -208,15 +213,15 @@ constexpr int kBk32 = 32;   // keys per tile of the fp32 kernel
 
 __global__ void __launch_bounds__(kBq32)
 flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int H,
-                     float scale_log2) {
+                     int HT, int h0, float scale_log2) {
   __shared__ __align__(16) float ks[kBk32 * kHd];
   __shared__ __align__(16) float vs[kBk32 * kHd];
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const size_t tok = (size_t)3 * H * kHd;
-  const float* qb = qkv + (size_t)b * N * tok + (size_t)h * kHd;
-  const float* kb = qb + (size_t)H * kHd;
-  const float* vb = qb + (size_t)2 * H * kHd;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;  // h: the output head
+  const size_t tok = (size_t)3 * HT * kHd;
+  const float* qb = qkv + (size_t)b * N * tok + (size_t)(h0 + h) * kHd;
+  const float* kb = qb + (size_t)HT * kHd;
+  const float* vb = qb + (size_t)2 * HT * kHd;
   const int row = blockIdx.x * kBq32 + threadIdx.x;
 
   float q[kHd], o[kHd];
@@ -293,22 +298,24 @@ flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int
 
 }  // namespace
 
-// qkv (B, N, 3, H, 64) contiguous, bf16 when is_bf16 else fp32 -> out
-// (B, N, H, 64) of the same type; scale is the softmax scale applied to q.k.
-// Returns cudaGetLastError() after the launch.
-extern "C" int fs_flash_attention(const void* qkv, void* out, int B, int N, int H,
-                                  float scale, int is_bf16, void* stream) {
+// qkv (B, N, 3, HT, 64) contiguous, bf16 when is_bf16 else fp32 -> out
+// (B, N, H, 64) of the same type for the heads [h0, h0 + H); scale is the
+// softmax scale applied to q.k. Returns cudaGetLastError() after the launch.
+extern "C" int fs_flash_attention(const void* qkv, void* out, int B, int N, int H, int HT,
+                                  int h0, float scale, int is_bf16, void* stream) {
+  if (H < 1 || h0 < 0 || h0 + H > HT) return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     dim3 grid((N + kBq - 1) / kBq, B * H);
     flash_fwd_kernel<<<grid, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(qkv),
-                                                 static_cast<__nv_bfloat16*>(out), N, H,
+                                                 static_cast<__nv_bfloat16*>(out), N, H, HT, h0,
                                                  scale_log2);
   } else {
     dim3 grid((N + kBq32 - 1) / kBq32, B * H);
     flash_fwd_f32_kernel<<<grid, kBq32, 0, st>>>(static_cast<const float*>(qkv),
-                                                  static_cast<float*>(out), N, H, scale_log2);
+                                                  static_cast<float*>(out), N, H, HT, h0,
+                                                  scale_log2);
   }
   return (int)cudaGetLastError();
 }

@@ -4,14 +4,19 @@
 // Replaces the TPU kernel foundationstereo_tpu/ops/pallas_kernels.py:
 // lookup_level_pallas (_lookup_row_kernel, reached from
 // disparity_lookup_pallas_pre), together with its all-levels variant
-// disparity_lookup_pallas_fused (_lookup_fused_kernel).
+// disparity_lookup_pallas_fused (_lookup_fused_kernel), and, for one width
+// shard of the multi-device path, the same kernels under
+// disparity_lookup_pallas_sharded (a global x offset per shard).
 //
 // Level l samples 2r+1 taps by 1-D linear interpolation with zero padding
 // outside [0, L-1] (grid_sample, align_corners=True): the geometry volume
 // geo_l (B, H, W, C, D_l) at disp / 2^l + k, the correlation corr_l
-// (B, H, W, W_l) at (x - disp) / 2^l + k, k in [-r, r]. The output is the
-// dense (B, L*(C+1)*(2r+1), H, W) feature map in the channel order
-// [geo_l0 (C-major, taps fastest), corr_l0, geo_l1, ...], fp32 accumulation.
+// (B, H, W, W_l) at (x0 + x - disp) / 2^l + k, k in [-r, r], where x0 is the
+// global column of local column 0 (0 on one device; a width shard holds W
+// of the left columns, each with the full W_l right axis, so it needs no
+// halo, only its offset). The output is the dense (B, L*(C+1)*(2r+1), H, W)
+// feature map in the channel order [geo_l0 (C-major, taps fastest), corr_l0,
+// geo_l1, ...], fp32 accumulation.
 //
 // Bound on the H100: bytes (about 20 FLOP per output value). The TPU kernel
 // contracts a tent over the whole D axis; here a direct gather reads only
@@ -32,7 +37,7 @@ struct LookupArgs {
   const void* corr[kMaxLevels];
   int geo_len[kMaxLevels];
   int corr_len[kMaxLevels];
-  int n_levels, C, H, W, radius;
+  int n_levels, C, H, W, radius, x_offset;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -71,7 +76,7 @@ __global__ void lookup_kernel(LookupArgs a, const float* __restrict__ disp,
   } else {
     len = a.corr_len[lvl];
     row = static_cast<const TI*>(a.corr[lvl]) + pix * len;
-    x = ((float)w - dsp) * scale;
+    x = ((float)(w + a.x_offset) - dsp) * scale;
   }
   // Far-out positions sample zeros either way; the clamp keeps the int finite.
   const float lim = (float)(len + 2 * a.radius + 2);
@@ -106,11 +111,13 @@ int launch(const LookupArgs& a, const void* disp, void* out, int B, cudaStream_t
 
 // geo[l]: (B, H, W, C, geo_len[l]); corr[l]: (B, H, W, corr_len[l]), both in
 // the input type (fp32 or bf16); disp (B, H, W) fp32; out (B, F, H, W) in
-// the output type. Returns cudaGetLastError() after the launch.
+// the output type; x_offset the global column of local column 0. Returns
+// cudaGetLastError() after the launch.
 extern "C" int fs_disparity_lookup(const void* const* geo, const void* const* corr,
                                    const int* geo_len, const int* corr_len, int n_levels,
                                    const void* disp, void* out, int B, int H, int W, int C,
-                                   int radius, int in_bf16, int out_bf16, void* stream) {
+                                   int radius, int x_offset, int in_bf16, int out_bf16,
+                                   void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels) return (int)cudaErrorInvalidValue;
   LookupArgs a;
   for (int i = 0; i < n_levels; ++i) {
@@ -124,6 +131,7 @@ extern "C" int fs_disparity_lookup(const void* const* geo, const void* const* co
   a.H = H;
   a.W = W;
   a.radius = radius;
+  a.x_offset = x_offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_bf16 && out_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, disp, out, B, s);
   if (in_bf16) return launch<__nv_bfloat16, float>(a, disp, out, B, s);

@@ -5,11 +5,14 @@ token, bicubic pos-embed interpolation with the +0.1 scale-factor offset,
 pre-norm blocks with LayerScale, and intermediate-layer taps.
 
 Attention over N > 1024 tokens takes the implementation ``vit_attention``
-names: "auto"/"flash" the flash-attention kernel (``ops/kernels.py:
+names: "flash" the flash-attention kernel (``ops/kernels.py:
 flash_attention``, bf16 or fp32, on CUDA tensors when ``use_pallas`` is set;
-its plain twin otherwise), "chunked" the online softmax over key chunks,
-"dense" the dense form. Smaller N takes the dense form, as the JAX package
-decides.
+its plain twin otherwise), "flash_sharded" the same kernel per (batch, heads)
+shard of the active mesh (``ops/sharded.py:flash_attention_sharded``),
+"chunked" the online softmax over key chunks, "dense" the dense form. "auto"
+is resolved at every call, as the JAX package resolves it per trace:
+"flash_sharded" under a mesh of more than one entry, "flash" otherwise.
+Smaller N takes the dense form, as the JAX package decides.
 """
 
 from __future__ import annotations
@@ -21,10 +24,27 @@ import torch.nn as nn
 
 from foundationstereo_torch.config import VIT_CONFIGS
 from foundationstereo_torch.models.layers import Conv2d, LayerNorm, Linear, gelu
-from foundationstereo_torch.ops import kernels
+from foundationstereo_torch.ops import kernels, sharded
 from foundationstereo_torch.ops.resize import interp_matrix_np
+from foundationstereo_torch.parallel.mesh import current_mesh
 
-_VIT_ATTENTION_IMPLS = ("auto", "dense", "chunked", "flash")
+_VIT_ATTENTION_IMPLS = ("auto", "dense", "chunked", "flash", "flash_sharded")
+
+
+def resolve_vit_attention(impl: str) -> str:
+    """The attention ``impl`` names, with "auto" resolved for this call from
+    the active mesh (the JAX package's ``resolve_vit_attention``). Unknown
+    values raise."""
+    if impl not in _VIT_ATTENTION_IMPLS:
+        raise ValueError(f"vit_attention={impl!r} not in {_VIT_ATTENTION_IMPLS}")
+    if impl != "auto":
+        return impl
+    mesh = current_mesh()
+    return "flash_sharded" if mesh is not None and mesh.size > 1 else "flash"
+
+
+def _plain_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int) -> torch.Tensor:
+    return kernels.flash_attention_plain(qkv[:, :, :, h0:h0 + n_heads], scale)
 
 
 def chunked_attention(qkv: torch.Tensor, scale: float, chunk: int = 512) -> torch.Tensor:
@@ -54,10 +74,9 @@ class Attention(nn.Module):
 
     def __init__(self, dim, num_heads, attention="auto", use_kernel=True, cdt=torch.float32):
         super().__init__()
-        if attention not in _VIT_ATTENTION_IMPLS:
-            raise ValueError(f"vit_attention={attention!r} not in {_VIT_ATTENTION_IMPLS}")
+        resolve_vit_attention(attention)        # an unknown value raises here
         self.num_heads = num_heads
-        self.attention = "flash" if attention == "auto" else attention
+        self.attention = attention
         self.use_kernel = use_kernel
         self.qkv = Linear(dim, 3 * dim, cdt=cdt)
         self.proj = Linear(dim, dim, cdt=cdt)
@@ -67,8 +86,11 @@ class Attention(nn.Module):
         hd = C // self.num_heads
         qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, hd)
         scale = 1.0 / math.sqrt(hd)
-        impl = self.attention if N > 1024 else "dense"
-        if impl == "flash":
+        impl = resolve_vit_attention(self.attention) if N > 1024 else "dense"
+        if impl == "flash_sharded":
+            out = sharded.flash_attention_sharded(qkv, scale, current_mesh(),
+                                                  None if self.use_kernel else _plain_heads)
+        elif impl == "flash":
             attend = kernels.flash_attention if self.use_kernel else kernels.flash_attention_plain
             out = attend(qkv, scale)
         elif impl == "chunked":

@@ -19,10 +19,18 @@ plain twins on the CPU); without it the model calls the plain twins
 directly. With ``use_pallas`` and ``pallas_conv3x3`` the constructor also
 marks the eligible 3x3 convs (``models/layers.py:route_conv3x3``), which
 then run through the conv kernel. Nothing else changes between the paths.
+
+Under a mesh (``parallel.mesh_context``) each forward call picks its kernels
+as the JAX package's ``_pallas_mode`` does (``kernel_mode``): the
+width-sharded build and lookup (``ops/sharded.py``, K5) where the mesh's
+``spatial`` axis divides W/4, the ViT attention per (batch, heads) shard
+(K3s, ``vit_attention="auto"``), and no 3x3 conv kernel. Every other module
+runs on the model's device.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -42,8 +50,9 @@ from foundationstereo_torch.models.layers import (
     route_conv3x3,
 )
 from foundationstereo_torch.models.update import BasicSelectiveMultiUpdateBlock
-from foundationstereo_torch.ops import cost_volume, kernels, sampler
+from foundationstereo_torch.ops import cost_volume, kernels, sampler, sharded
 from foundationstereo_torch.ops.upsample import context_upsample, disparity_regression
+from foundationstereo_torch.parallel.mesh import Mesh, current_mesh
 from foundationstereo_torch.utils.misc import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -52,6 +61,19 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
     std = torch.as_tensor(IMAGENET_STD, device=img.device)
     return ((img.float() / 255.0 - mean) / std).permute(0, 3, 1, 2)
+
+
+def kernel_mode(cfg: ModelConfig, mesh: Mesh | None, w4: int) -> str:
+    """The cost-volume build and lookup of one forward call: "plain" (the
+    twins; no ``use_pallas``), "sharded" (K5, on a mesh whose ``spatial``
+    axis is > 1 and divides W/4) or "single" (K1 and K2 on the model's
+    device). A mesh whose ``spatial`` axis does not divide W/4 takes
+    "single" where the JAX package takes its XLA forms: the same numbers,
+    and no plain twin serves on the card."""
+    if not cfg.use_pallas:
+        return "plain"
+    spatial = 1 if mesh is None else mesh.shape.get("spatial", 1)
+    return "sharded" if spatial > 1 and w4 % spatial == 0 else "single"
 
 
 def resolve_device(device) -> torch.device:
@@ -134,6 +156,8 @@ class FoundationStereo(nn.Module):
         cfg, dt = self.cfg, self.cdt
         B = left.shape[0]
         D = cfg.max_disp // 4
+        mesh = current_mesh()
+        mode = kernel_mode(cfg, mesh, left.shape[2] // 4)
         img1 = normalize_image(left).to(dt)
         img2 = normalize_image(right).to(dt)
 
@@ -145,9 +169,12 @@ class FoundationStereo(nn.Module):
 
         # Cost volume as parts: CorrStem contracts them with the left term.
         lproj, rproj = self.proj_cmb(fl[0]), self.proj_cmb(fr[0])
-        build = kernels.cost_volume_parts if cfg.use_pallas else cost_volume.cost_volume_parts
-        gwc, rps = build(fl[0].contiguous(), fr[0].contiguous(), rproj.contiguous(), D,
-                         cfg.cv_group, out_dtype=dt)
+        args = (fl[0].contiguous(), fr[0].contiguous(), rproj.contiguous(), D, cfg.cv_group)
+        if mode == "sharded":
+            gwc, rps = sharded.cost_volume_parts_sharded(*args, mesh, out_dtype=dt)
+        else:
+            build = kernels.cost_volume_parts if mode == "single" else cost_volume.cost_volume_parts
+            gwc, rps = build(*args, out_dtype=dt)
         comb = self.corr_stem((gwc, rps, lproj))
         del gwc, rps
         comb = self.corr_feature_att(comb, fl[0])
@@ -174,11 +201,17 @@ class FoundationStereo(nn.Module):
                     for c in sampler.pool_last_axis(corr_base, cfg.corr_levels - 1)]
         del comb, geo_base, corr_base
 
-        lookup = kernels.disparity_lookup if cfg.use_pallas else sampler.disparity_lookup
+        if mode == "sharded":       # the shards' pyramids are cut once, before the loop
+            lookup = functools.partial(sharded.disparity_lookup_sharded,
+                                       sharded.shard_pyramids(geo_pyr, corr_pyr, mesh))
+        else:
+            fn = kernels.disparity_lookup if mode == "single" else sampler.disparity_lookup
+            lookup = functools.partial(fn, geo_pyr, corr_pyr)
+        del geo_pyr, corr_pyr
         disp = init_disp.float().contiguous()
         mask_feat = torch.zeros((B, 32) + disp.shape[1:], device=disp.device, dtype=dt)
         for _ in range(iters):
-            geo_feat = lookup(geo_pyr, corr_pyr, disp, cfg.corr_radius, out_dtype=dt)
+            geo_feat = lookup(disp, cfg.corr_radius, out_dtype=dt)
             net_list, mask_feat, delta = self.update_block(
                 net_list, inp_list, geo_feat, disp[:, None].to(dt), att)
             disp = disp + delta[:, 0].float()

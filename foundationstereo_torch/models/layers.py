@@ -18,6 +18,7 @@ are those the JAX package routes under its ``pallas_conv3x3_scope``: the 2D
 conv, the (1, 3, 3) 3D conv with D folded into the batch (the kernel reads
 the (B, C, D, H, W) volume in place through its strides, no copy), and the
 per-tap decomposition of a full 3D conv whose spatial part is 3x3/s1/p1.
+The routed convs take K4 only off a multi-device mesh (``k4_active``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
+from foundationstereo_torch.parallel.mesh import current_mesh
 
 
 def leaky_relu(x):
@@ -58,6 +60,14 @@ def k4_input(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     for another layout, such as channels-last)."""
     x = x.to(dt)
     return x if x.stride(-1) == 1 and x.stride(-2) == x.shape[-1] else x.contiguous()
+
+
+def k4_active() -> bool:
+    """Whether the routed convs take K4 in this call: not under a mesh of
+    more than one entry. The JAX package enables K4 only on the
+    single-device lookup path (``models/foundation_stereo.py:236-239``)."""
+    mesh = current_mesh()
+    return mesh is None or mesh.size == 1
 
 
 def route_conv3x3(model: nn.Module) -> None:
@@ -100,7 +110,7 @@ class Conv2d(nn.Conv2d):
                               self.groups, self.in_channels, self.out_channels)
 
     def forward(self, x):
-        if self.k4:
+        if self.k4 and k4_active():
             packed = self._k4_weight(
                 [self.weight], [self.cdt],
                 lambda: kernels.pack_conv3x3_weight(self.weight, self.cdt)) if x.is_cuda else None
@@ -135,7 +145,7 @@ class Conv3d(nn.Conv3d):
                 self.k4 = "fold"
 
     def forward(self, x):
-        if self.k4 is None:
+        if self.k4 is None or not k4_active():
             return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
                                       _cast(self.bias, self.cdt))
         x = k4_input(x, self.cdt)

@@ -13,6 +13,7 @@ from foundationstereo_torch.models.layers import (
     Conv2d,
     EdgeNextConvEncoder,
     PackedWeights,
+    k4_active,
     k4_eligible,
     k4_input,
 )
@@ -46,7 +47,7 @@ class RaftConvGRU(nn.Module):
     As in the JAX package, the z and r gates run as one conv over their
     weights concatenated along the output channels (the parameters keep the
     separate ``convz``/``convr`` names); that conv goes through K4 once
-    ``enable_k4`` found its fused shape eligible."""
+    ``enable_k4`` found its fused shape eligible (and ``k4_active()``)."""
 
     def __init__(self, hidden_dim, input_dim, k=3, cdt=torch.float32):
         super().__init__()
@@ -62,20 +63,22 @@ class RaftConvGRU(nn.Module):
         self.k4 = k4_eligible(c.kernel_size, c.stride, c.padding, c.dilation, c.groups,
                               c.in_channels, 2 * c.out_channels)
 
-    def _zr_weights(self, on_cuda: bool):
-        """(weight, bias, K4 layout or None) of the fused z/r conv in ``cdt``."""
+    def _zr_weights(self, pack: bool):
+        """(weight, bias, K4 layout if ``pack`` else None) of the fused z/r
+        conv in ``cdt``."""
         cz, cr, cdt = self.convz, self.convr, self.convz.cdt
 
         def make():
             w = torch.cat([cz.weight, cr.weight]).to(cdt)
-            packed = kernels.pack_conv3x3_weight(w, cdt) if self.k4 and on_cuda else None
+            packed = kernels.pack_conv3x3_weight(w, cdt) if pack else None
             return w, torch.cat([cz.bias, cr.bias]).to(cdt), packed
 
-        return self._zr([cz.weight, cr.weight, cz.bias, cr.bias], [cdt, self.k4, on_cuda], make)
+        return self._zr([cz.weight, cr.weight, cz.bias, cr.bias], [cdt, pack], make)
 
     def forward(self, h, x, hx):
-        w, b, packed = self._zr_weights(hx.is_cuda)
-        if self.k4:
+        k4 = self.k4 and k4_active()
+        w, b, packed = self._zr_weights(k4 and hx.is_cuda)
+        if k4:
             zr = kernels.conv3x3(k4_input(hx, self.convz.cdt), w, b, packed)
         else:
             zr = F.conv2d(hx.to(self.convz.cdt), w, b, padding=self.convz.padding)

@@ -2,12 +2,15 @@
 
 The port of the JAX package's ``ops/cost_volume.py``. Correlations are
 computed in fp32 whatever the input dtype. ``cost_volume_parts`` is the plain
-twin of the cost-volume kernel (``ops/kernels.py:cost_volume_parts``).
+twin of the cost-volume kernel (``ops/kernels.py:cost_volume_parts``),
+``cost_volume_parts_haloed`` that of its width-shard form
+(``ops/kernels.py:cost_volume_parts_haloed``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def group_normalize(feat: torch.Tensor, num_groups: int, eps: float = 1e-12) -> torch.Tensor:
@@ -66,6 +69,31 @@ def cost_volume_parts(left: torch.Tensor, right: torch.Tensor, right_proj: torch
     gwc = build_gwc_volume(left, right, maxdisp, num_groups).to(out_dtype)
     rps = shift_right(right_proj.float(), maxdisp).to(out_dtype)
     return gwc, rps
+
+
+def cost_volume_parts_haloed(left: torch.Tensor, right: torch.Tensor, right_proj: torch.Tensor,
+                             maxdisp: int, num_groups: int, x_offset: int,
+                             out_dtype: torch.dtype = torch.float32):
+    """Plain twin of the haloed cost-volume kernel: one width shard.
+
+    left (B, C, H, W_local) holds the global columns [x_offset, x_offset +
+    W_local); right (B, C, H, W) and right_proj (B, P, H, W) are full width.
+    Returns gwc (B, G, D, H, W_local) and rps (B, P, D, H, W_local) in
+    ``out_dtype``: gwc[..., d, h, w] = <Ln[..., h, w], Rn[..., h, x_offset +
+    w - d]> and rps[..., d, h, w] = right_proj[..., h, x_offset + w - d], 0
+    where x_offset + w < d. As the TPU kernel receives them, the right rows
+    are cut to the window [x_offset - D, x_offset + W_local) of the rows
+    zero-padded by D columns on the left.
+    """
+    w = left.shape[-1]
+    win = slice(x_offset, x_offset + maxdisp + w)
+    ln = group_normalize(left, num_groups)
+    rn = group_normalize(F.pad(right.float(), (maxdisp, 0)), num_groups)[..., win]
+    rp = F.pad(right_proj.float(), (maxdisp, 0))[..., win]
+    shifts = [slice(maxdisp - d, maxdisp - d + w) for d in range(maxdisp)]
+    gwc = torch.stack([(ln * rn[..., s]).sum(dim=2) for s in shifts], dim=2)
+    rps = torch.stack([rp[..., s] for s in shifts], dim=2)
+    return gwc.to(out_dtype), rps.to(out_dtype)
 
 
 def all_pairs_correlation(left: torch.Tensor, right: torch.Tensor,

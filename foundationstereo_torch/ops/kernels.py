@@ -1,15 +1,23 @@
 """The port's hand-written CUDA kernels: build, load, wrappers, launch counts.
 
-Four kernels, one CUDA C++ source each under ``foundationstereo_torch/csrc``:
+Four CUDA C++ sources under ``foundationstereo_torch/csrc``, seven wrappers:
 
-=====================  ==========================  ==========================================
-wrapper                source                      TPU kernel it replaces
-=====================  ==========================  ==========================================
-cost_volume_parts      csrc/cost_volume.cu         ops/pallas_kernels.py:build_cost_volume_pallas
-disparity_lookup       csrc/lookup.cu              ops/pallas_kernels.py:lookup_level_pallas
-flash_attention        csrc/flash_attention.cu     models/dinov2.py:flash_vit_attention
-conv3x3                csrc/conv3x3.cu             ops/conv3x3.py:conv3x3_pallas
-=====================  ==========================  ==========================================
+=========================  =======================  ====================================================
+wrapper                    source                   TPU kernel it replaces
+=========================  =======================  ====================================================
+cost_volume_parts          csrc/cost_volume.cu      ops/pallas_kernels.py:build_cost_volume_pallas (K1)
+cost_volume_parts_haloed   csrc/cost_volume.cu      ops/pallas_kernels.py:build_cost_volume_pallas_sharded
+                                                    (_cost_volume_row_kernel_haloed, K5 build)
+disparity_lookup           csrc/lookup.cu           ops/pallas_kernels.py:lookup_level_pallas (K2)
+disparity_lookup_shard     csrc/lookup.cu           ops/pallas_kernels.py:disparity_lookup_pallas_sharded
+                                                    (K5 lookup)
+flash_attention            csrc/flash_attention.cu  models/dinov2.py:flash_vit_attention (K3)
+flash_attention_heads      csrc/flash_attention.cu  models/dinov2.py:flash_vit_attention_sharded (K3s)
+conv3x3                    csrc/conv3x3.cu          ops/conv3x3.py:conv3x3_pallas (K4)
+=========================  =======================  ====================================================
+
+The ``_haloed``, ``_shard`` and ``_heads`` wrappers each run one shard of
+the multi-device path (``ops/sharded.py`` runs them over a mesh).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with ``ctypes``. The build runs at the first
@@ -18,7 +26,9 @@ CUDA call (all sources at once, one ``nvcc`` each, in parallel) into
 its source, so an edited source is rebuilt. A failed build or load raises.
 
 On a CPU tensor a wrapper runs its kernel's plain PyTorch twin; on a CUDA
-tensor it launches the kernel (and adds one to ``LAUNCHES[name]``) or raises.
+tensor it launches the kernel on that tensor's device, under its device
+guard and on its current stream (and adds one to ``LAUNCHES[name]``), or
+raises.
 """
 
 from __future__ import annotations
@@ -36,6 +46,9 @@ import torch
 import torch.nn.functional as F
 
 from foundationstereo_torch.ops.cost_volume import cost_volume_parts as cost_volume_parts_plain
+from foundationstereo_torch.ops.cost_volume import (
+    cost_volume_parts_haloed as cost_volume_parts_haloed_plain,
+)
 from foundationstereo_torch.ops.sampler import disparity_lookup as disparity_lookup_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -49,9 +62,20 @@ SOURCES = {
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# Launches per kernel since the last reset_launches(); counted only where a
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# C entry point fs_<name> -> (the source whose library holds it, its argument types)
+ENTRY_POINTS = {
+    "cost_volume_parts_haloed": ("cost_volume_parts", [_P] * 5 + [_I] * 11 + [_P]),
+    "disparity_lookup": ("disparity_lookup", [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_P]),
+    "flash_attention": ("flash_attention", [_P, _P] + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 7 + [_P]),
+}
+
+# Launches per wrapper since the last reset_launches(); counted only where a
 # wrapper launches its kernel.
-LAUNCHES = {name: 0 for name in SOURCES}
+LAUNCHES = {name: 0 for name in ("cost_volume_parts", "cost_volume_parts_haloed",
+                                 "disparity_lookup", "disparity_lookup_shard",
+                                 "flash_attention", "flash_attention_heads", "conv3x3")}
 
 _fns: dict = {}   # name -> the loaded C entry point fs_<name>
 _lock = threading.Lock()
@@ -111,21 +135,13 @@ def _lib(name: str):
     at the first call."""
     with _lock:
         if name not in _fns:
-            for n, p in build_all().items():
-                fn = getattr(ctypes.CDLL(str(p)), f"fs_{n}")
+            libs = {n: ctypes.CDLL(str(p)) for n, p in build_all().items()}
+            for entry, (src, argtypes) in ENTRY_POINTS.items():
+                fn = getattr(libs[src], f"fs_{entry}")
                 fn.restype = ctypes.c_int
-                fn.argtypes = _ARGTYPES[n]
-                _fns[n] = fn
+                fn.argtypes = argtypes
+                _fns[entry] = fn
         return _fns[name]
-
-
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = {
-    "cost_volume_parts": [_P, _P, _P, _P, _P] + [_I] * 9 + [_P],
-    "disparity_lookup": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "flash_attention": [_P, _P, _I, _I, _I, ctypes.c_float, _I, _P],
-    "conv3x3": [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 7 + [_P],
-}
 
 
 def _check(name: str, err: int) -> None:
@@ -134,24 +150,29 @@ def _check(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
+def _launch(name: str, entry: str, device: torch.device, *args) -> None:
+    """Call ``fs_<entry>(*args, stream)`` on ``device``: under its device
+    guard, on its current stream. Counts one launch of ``name`` or raises."""
+    fn = _lib(entry)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    _check(name, err)
+
+
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise ValueError(msg)
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
-    devs = {t.device.type for t in tensors}
+    devs = {t.device for t in tensors}
     _require(len(devs) == 1, f"tensors on mixed devices {devs}")
-    dev = devs.pop()
+    dev = devs.pop().type
     _require(dev in ("cpu", "cuda"), f"unsupported device {dev}")
     return dev == "cuda"
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -166,24 +187,46 @@ def cost_volume_parts(left: torch.Tensor, right: torch.Tensor, right_proj: torch
     rps (B, P, D, H, W) in ``out_dtype``; see ``ops.cost_volume.cost_volume_parts``."""
     if not _on_cuda(left, right, right_proj):
         return cost_volume_parts_plain(left, right, right_proj, maxdisp, num_groups, out_dtype)
+    return _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, None)
+
+
+def cost_volume_parts_haloed(left: torch.Tensor, right: torch.Tensor, right_proj: torch.Tensor,
+                             maxdisp: int, num_groups: int, x_offset: int,
+                             out_dtype: torch.dtype = torch.float32):
+    """One width shard (K5's build): left (B, C, H, W_local), the global
+    columns [x_offset, x_offset + W_local); right (B, C, H, W) and
+    right_proj (B, P, H, W) full width -> gwc (B, G, D, H, W_local), rps
+    (B, P, D, H, W_local); see ``ops.cost_volume.cost_volume_parts_haloed``."""
+    if not _on_cuda(left, right, right_proj):
+        return cost_volume_parts_haloed_plain(left, right, right_proj, maxdisp, num_groups,
+                                              x_offset, out_dtype)
+    return _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset)
+
+
+def _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset):
     b, c, h, w = left.shape
+    wr = right.shape[-1]
     p = right_proj.shape[1]
-    _require(right.shape == left.shape and right_proj.shape == (b, p, h, w),
-             f"shapes {tuple(left.shape)} {tuple(right.shape)} {tuple(right_proj.shape)}")
+    x0 = 0 if x_offset is None else int(x_offset)
+    _require(right.shape == (b, c, h, wr) and right_proj.shape == (b, p, h, wr)
+             and (wr == w if x_offset is None else 0 <= x0 and x0 + w <= wr),
+             f"shapes {tuple(left.shape)} {tuple(right.shape)} {tuple(right_proj.shape)}, "
+             f"x_offset {x_offset}")
     _require(left.dtype == right.dtype == right_proj.dtype and left.dtype in _FLOATS,
              "inputs must share one dtype, float32 or bfloat16")
     _require(out_dtype in _FLOATS, f"out_dtype {out_dtype}")
     _require(c % num_groups == 0 and c // num_groups <= 32, f"C={c}, groups={num_groups}")
-    _require(c // num_groups * w * 4 <= 232448, f"row of width {w} exceeds shared memory")
+    window = min(x0 + w, maxdisp - 1 + w)        # the right columns a block keeps
+    _require(c // num_groups * window * 4 <= 232448, f"row of width {window} exceeds shared memory")
     _require(all(t.is_contiguous() for t in (left, right, right_proj)),
              "inputs must be contiguous")
     gwc = torch.empty((b, num_groups, maxdisp, h, w), device=left.device, dtype=out_dtype)
     rps = torch.empty((b, p, maxdisp, h, w), device=left.device, dtype=out_dtype)
-    err = _lib("cost_volume_parts")(
-        left.data_ptr(), right.data_ptr(), right_proj.data_ptr(), gwc.data_ptr(),
-        rps.data_ptr(), b, c, h, w, num_groups, p, maxdisp,
-        int(left.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _stream())
-    _check("cost_volume_parts", err)
+    name = "cost_volume_parts" if x_offset is None else "cost_volume_parts_haloed"
+    _launch(name, "cost_volume_parts_haloed", left.device,
+            left.data_ptr(), right.data_ptr(), right_proj.data_ptr(), gwc.data_ptr(),
+            rps.data_ptr(), b, c, h, w, wr, x0, num_groups, p, maxdisp,
+            int(left.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     return gwc, rps
 
 
@@ -199,6 +242,24 @@ def disparity_lookup(geo_pyramid: list[torch.Tensor], corr_pyramid: list[torch.T
     -> (B, L*(C+1)*(2r+1), H, W); see ``ops.sampler.disparity_lookup``."""
     if not _on_cuda(disp, *geo_pyramid, *corr_pyramid):
         return disparity_lookup_plain(geo_pyramid, corr_pyramid, disp, radius, out_dtype)
+    return _lookup("disparity_lookup", geo_pyramid, corr_pyramid, disp, radius, out_dtype, 0)
+
+
+def disparity_lookup_shard(geo_pyramid: list[torch.Tensor], corr_pyramid: list[torch.Tensor],
+                           disp: torch.Tensor, radius: int, x_offset: int,
+                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One width shard (K5's lookup): the W_local left columns from global
+    column ``x_offset`` on -- geo levels (B, H, W_local, C, D_l), corr levels
+    (B, H, W_local, W_l) with the full right axis, disp (B, H, W_local) ->
+    (B, F, H, W_local); see ``ops.sampler.disparity_lookup``."""
+    if not _on_cuda(disp, *geo_pyramid, *corr_pyramid):
+        return disparity_lookup_plain(geo_pyramid, corr_pyramid, disp, radius, out_dtype,
+                                      x_offset)
+    return _lookup("disparity_lookup_shard", geo_pyramid, corr_pyramid, disp, radius, out_dtype,
+                   x_offset)
+
+
+def _lookup(name, geo_pyramid, corr_pyramid, disp, radius, out_dtype, x_offset):
     b, h, w = disp.shape
     n = len(geo_pyramid)
     c = geo_pyramid[0].shape[3]
@@ -218,12 +279,11 @@ def disparity_lookup(geo_pyramid: list[torch.Tensor], corr_pyramid: list[torch.T
     out = torch.empty((b, f, h, w), device=disp.device, dtype=out_dtype)
     ptrs = (ctypes.c_void_p * n)
     lens = (ctypes.c_int * n)
-    err = _lib("disparity_lookup")(
-        ptrs(*[g.data_ptr() for g in geo_pyramid]), ptrs(*[cr.data_ptr() for cr in corr_pyramid]),
-        lens(*[g.shape[4] for g in geo_pyramid]), lens(*[cr.shape[3] for cr in corr_pyramid]),
-        n, disp.data_ptr(), out.data_ptr(), b, h, w, c, radius,
-        int(in_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), _stream())
-    _check("disparity_lookup", err)
+    _launch(name, "disparity_lookup", disp.device,
+            ptrs(*[g.data_ptr() for g in geo_pyramid]), ptrs(*[cr.data_ptr() for cr in corr_pyramid]),
+            lens(*[g.shape[4] for g in geo_pyramid]), lens(*[cr.shape[3] for cr in corr_pyramid]),
+            n, disp.data_ptr(), out.data_ptr(), b, h, w, c, radius, int(x_offset),
+            int(in_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
     return out
 
 
@@ -246,14 +306,27 @@ def flash_attention(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     (B, N, H, 64) in qkv's dtype, bfloat16 (tensor cores) or float32."""
     if not _on_cuda(qkv):
         return flash_attention_plain(qkv, scale)
+    return _attention("flash_attention", qkv, scale, 0, qkv.shape[3])
+
+
+def flash_attention_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int) -> torch.Tensor:
+    """One head shard (K3s): attention over the heads [h0, h0 + n_heads) of
+    qkv (B, N, 3, H, 64), read in place -> (B, N, n_heads, 64)."""
+    if not _on_cuda(qkv):
+        return flash_attention_plain(qkv[:, :, :, h0:h0 + n_heads], scale)
+    return _attention("flash_attention_heads", qkv, scale, h0, n_heads)
+
+
+def _attention(name, qkv, scale, h0, n_heads):
     b, n, three, heads, hd = qkv.shape
     _require(three == 3 and hd == 64, f"qkv shape {tuple(qkv.shape)}: want (B, N, 3, H, 64)")
     _require(qkv.dtype in _FLOATS and qkv.is_contiguous() and qkv.data_ptr() % 16 == 0,
              "qkv must be contiguous, 16-byte aligned float32 or bfloat16")
-    out = torch.empty((b, n, heads, hd), device=qkv.device, dtype=qkv.dtype)
-    err = _lib("flash_attention")(qkv.data_ptr(), out.data_ptr(), b, n, heads, float(scale),
-                                  int(qkv.dtype == torch.bfloat16), _stream())
-    _check("flash_attention", err)
+    _require(0 <= h0 and 1 <= n_heads and h0 + n_heads <= heads,
+             f"heads [{h0}, {h0 + n_heads}) of {heads}")
+    out = torch.empty((b, n, n_heads, hd), device=qkv.device, dtype=qkv.dtype)
+    _launch(name, "flash_attention", qkv.device, qkv.data_ptr(), out.data_ptr(), b, n, n_heads,
+            heads, h0, float(scale), int(qkv.dtype == torch.bfloat16))
     return out
 
 
@@ -330,9 +403,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
     if bias is not None:
         _require(bias.shape == (f,) and bias.device == x.device, f"bias {tuple(bias.shape)}")
         bias = bias.float().contiguous()
-    err = _lib("conv3x3")(
-        x.data_ptr(), packed.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
-        n_outer, n_inner, x.stride(0), xsi, x.stride(1), out.stride(0), osi, out.stride(1),
-        c, h, w, f, packed.shape[2], packed.shape[1], int(x.dtype == torch.bfloat16), _stream())
-    _check("conv3x3", err)
+    _launch("conv3x3", "conv3x3", x.device,
+            x.data_ptr(), packed.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
+            n_outer, n_inner, x.stride(0), xsi, x.stride(1), out.stride(0), osi, out.stride(1),
+            c, h, w, f, packed.shape[2], packed.shape[1], int(x.dtype == torch.bfloat16))
     return out

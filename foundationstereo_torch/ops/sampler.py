@@ -40,19 +40,21 @@ def _sample_taps(vol: torch.Tensor, x: torch.Tensor, radius: int) -> torch.Tenso
 
 def disparity_lookup(geo_pyramid: list[torch.Tensor], corr_pyramid: list[torch.Tensor],
                      disp: torch.Tensor, radius: int,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                     out_dtype: torch.dtype = torch.float32, x_offset: int = 0) -> torch.Tensor:
     """Gather geometry and all-pairs-correlation features at ``disp``.
 
     geo_pyramid: levels of (B, H, W, C, D_l); corr_pyramid: levels of
     (B, H, W, W_l); disp: (B, H, W) fp32 at 1/4 resolution. Level l samples
-    the geometry at disp / 2^l + k and the correlation at (x - disp) / 2^l + k.
+    the geometry at disp / 2^l + k and the correlation at (x_offset + x -
+    disp) / 2^l + k, with ``x_offset`` the global column of column 0 (0 on
+    one device, the shard's offset for a width shard).
 
     Returns (B, L * (C + 1) * (2r + 1), H, W) in ``out_dtype`` (fp32
     accumulation), channels [geo_l0 (C-major, taps fastest), corr_l0, geo_l1, ...].
     """
     b, h, w = disp.shape
     disp = disp.float()
-    coords = torch.arange(w, device=disp.device, dtype=torch.float32)
+    coords = torch.arange(w, device=disp.device, dtype=torch.float32) + x_offset
     out = []
     for i, (geo, corr) in enumerate(zip(geo_pyramid, corr_pyramid)):
         scale = 1.0 / (2.0 ** i)

@@ -5,7 +5,11 @@
 * Whole forward: the port (through the kernel wrappers, which take their
   twins on the CPU, and through the plain ops) against
   ``FoundationStereo.apply(test_mode=True, iters=2)`` at vits, max_disp 64,
-  64x96, fp32: max abs <= 1e-2 px, the bound the stitched parity test uses.
+  64x96, fp32: max abs <= 1e-2 px, the bound the stitched parity test uses;
+  and the port under a data 1 x spatial 2 mesh of CPU devices (the sharded
+  build and lookup, W/4 = 24, D = 16 > W_local = 12) against the same.
+* The ViT attention's "auto" is resolved at every call from the active mesh;
+  "flash_sharded" without a mesh raises.
 * Rules: the port imports no JAX, its entry points need CUDA unless asked
   for the CPU, and CPU tensors launch no kernel.
 """
@@ -28,8 +32,10 @@ from foundationstereo_torch.convert.from_jax import (
     load_jax_variables,
 )
 from foundationstereo_torch.inference.demo import run_pair
+from foundationstereo_torch.models import dinov2 as tdino
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo
-from foundationstereo_torch.ops import kernels
+from foundationstereo_torch.ops import kernels, sharded
+from foundationstereo_torch.parallel import make_mesh, mesh_context
 from foundationstereo_tpu.convert.torch_import import import_reference_checkpoint
 from foundationstereo_tpu.models.foundation_stereo import FoundationStereo as JaxFoundationStereo
 from test_torch_modules import CFG, JCFG, random_variables
@@ -75,7 +81,69 @@ def test_whole_forward_matches_jax(jax_model, use_pallas):
         got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS).numpy()
     assert got.shape == want.shape == (1, H, W)
     assert float(np.abs(got - want).max()) <= 1e-2
-    assert kernels.LAUNCHES == {name: 0 for name in kernels.SOURCES}
+    assert not any(kernels.LAUNCHES.values())
+
+
+def _count_calls(monkeypatch, module, names):
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(module, name)
+
+        def wrapped(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(module, name, wrapped)
+    return calls
+
+
+def test_whole_forward_on_a_mesh_matches_jax(jax_model, monkeypatch):
+    """Under a data 1 x spatial 2 mesh of CPU devices: the sharded build (one
+    call per shard) and lookup (one per shard and iteration) instead of K1 and
+    K2, no 3x3 conv kernel though ``pallas_conv3x3`` is set (as in the JAX
+    package under a mesh), and the JAX forward's disparity."""
+    v, _, left, right, want = jax_model
+    model = FoundationStereo(CFG.replace(pallas_conv3x3=True), device="cpu")
+    load_jax_variables(model, v)
+    calls = _count_calls(monkeypatch, kernels, [
+        "cost_volume_parts", "cost_volume_parts_haloed", "disparity_lookup",
+        "disparity_lookup_shard", "conv3x3"])
+    mesh = make_mesh(devices=[torch.device("cpu")] * 2)
+    with mesh_context(mesh), torch.no_grad():
+        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS).numpy()
+    assert calls == {"cost_volume_parts": 0, "cost_volume_parts_haloed": 2, "disparity_lookup": 0,
+                     "disparity_lookup_shard": 2 * ITERS, "conv3x3": 0}
+    assert got.shape == want.shape == (1, H, W)
+    assert float(np.abs(got - want).max()) <= 1e-2
+
+
+def test_vit_attention_auto_resolves_per_call(monkeypatch):
+    """One module: "flash" outside a mesh, "flash_sharded" (the kernel on each
+    head shard) under a mesh of two, "flash" again after it."""
+    calls = _count_calls(monkeypatch, kernels, ["flash_attention", "flash_attention_heads"])
+    torch.manual_seed(0)
+    attn = tdino.Attention(128, 2, "auto")
+    x = torch.randn(1, 1025, 128)
+    with torch.no_grad():
+        want = attn(x)
+        with mesh_context(make_mesh(devices=[torch.device("cpu")] * 2)):
+            got = attn(x)
+        attn(x)
+    assert calls == {"flash_attention": 2, "flash_attention_heads": 2}
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    assert tdino.resolve_vit_attention("chunked") == "chunked"
+    with pytest.raises(ValueError, match="not in"):
+        tdino.resolve_vit_attention("flash_shard")
+
+
+def test_flash_sharded_needs_a_mesh():
+    """The JAX config value is accepted; without a mesh the call raises, as
+    the JAX package's shard_map does."""
+    attn = tdino.Attention(128, 2, "flash_sharded")
+    with pytest.raises(ValueError, match="needs a mesh"), torch.no_grad():
+        attn(torch.randn(1, 1025, 128))
+    with pytest.raises(ValueError, match="needs a mesh"):
+        sharded.flash_attention_sharded(torch.zeros(1, 4, 3, 2, 64), 0.125, None)
 
 
 def test_run_pair_pads_and_unpads(jax_model):

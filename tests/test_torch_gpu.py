@@ -10,7 +10,11 @@ bf16 ulp at the largest magnitude (inputs in [-1, 1]); bf16 attention
 against the fp32 twin: max error 2 bf16 ulps of max |ref|, mean error 1 bf16
 ulp of mean |ref| (output rounding and bf16 probabilities in P @ V). The 3x3
 conv (outputs of order 1, sums of up to 9*200 exact products in fp32):
-fp32 1e-4, bf16 1 bf16 ulp of the larger magnitude + 1e-4.
+fp32 1e-4, bf16 1 bf16 ulp of the larger magnitude + 1e-4. The sharded
+kernels (K5 build and lookup, K3s) take their single-device twins'
+tolerances per shard, and their stitched outputs must equal the
+single-device kernels' bit for bit (the same arithmetic per element).
+Tests that need two cards skip below that.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.models.dinov2 import Attention
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo
-from foundationstereo_torch.ops import cost_volume, kernels, sampler
+from foundationstereo_torch.ops import cost_volume, kernels, sampler, sharded
+from foundationstereo_torch.parallel import make_mesh, mesh_context
 
 pytestmark = pytest.mark.gpu
 
@@ -176,7 +181,8 @@ def test_conv3x3_errors_raise_and_do_not_fall_back(cuda):
     out = torch.empty(2, 64, 4, 8, device=cuda, dtype=torch.bfloat16)
     err = kernels._lib("conv3x3")(x.data_ptr(), packed.data_ptr(), 0, out.data_ptr(), 2, 1,
                                   x.stride(0), 0, x.stride(1), out.stride(0), 0, out.stride(1),
-                                  128, 4, 8, 64, 128, 100, 1, kernels._stream())
+                                  128, 4, 8, 64, 128, 100, 1,
+                                  torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels._check("conv3x3", err)
     assert kernels.LAUNCHES["conv3x3"] == 0
@@ -205,3 +211,144 @@ def test_model_with_conv3x3_counts_its_launches(cuda, monkeypatch, mixed_precisi
         assert float(diff.mean()) <= 0.05 and float(torch.quantile(diff.flatten(), 0.99)) <= 0.5
     else:                    # the CPU parity bound (TF32 off: fp32 throughout)
         assert float(diff.max()) <= 1e-2
+
+
+@pytest.fixture
+def two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return torch.device("cuda:0"), torch.device("cuda:1")
+
+
+def _one_card_mesh(cuda, n=4):
+    return make_mesh(devices=[cuda] * n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_haloed_cost_volume_kernel(cuda, dtype):
+    """4 shards of 24 columns at D = 40: shard 0's halo is all zeros, shard
+    1's reaches past shard 0 into them."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    l, r = (_uniform(g, 2, 64, 7, 96, device=cuda).to(dtype) for _ in range(2))
+    rp = _uniform(g, 2, 12, 7, 96, device=cuda).to(dtype)
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    kernels.reset_launches()
+    for j in range(4):
+        lj = l[..., 24 * j:24 * (j + 1)].contiguous()
+        gk, rk = kernels.cost_volume_parts_haloed(lj, r, rp, 40, 8, 24 * j, out_dtype=dtype)
+        gp, rpp = cost_volume.cost_volume_parts_haloed(lj, r, rp, 40, 8, 24 * j, out_dtype=dtype)
+        torch.testing.assert_close(gk.float(), gp.float(), rtol=0, atol=atol)
+        assert torch.equal(rk, rpp)
+    assert kernels.LAUNCHES["cost_volume_parts_haloed"] == 4
+    got = sharded.cost_volume_parts_sharded(l, r, rp, 40, 8, _one_card_mesh(cuda), out_dtype=dtype)
+    want = kernels.cost_volume_parts(l, r, rp, 40, 8, out_dtype=dtype)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_offset_lookup_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(10)
+    b, h, w, c, d = 2, 5, 40, 7, 24
+    geo = [x.to(dtype).contiguous()
+           for x in sampler.pool_last_axis(_uniform(g, b, h, w, c, d, device=cuda), 3)]
+    corr = [x.to(dtype).contiguous()
+            for x in sampler.pool_last_axis(_uniform(g, b, h, w, w, device=cuda), 3)]
+    disp = torch.rand(b, h, w, device=cuda, generator=g) * 3 * d - d
+    atol = 1e-5 if dtype == torch.float32 else 2.0 ** -8
+    for x0 in (10, 30):
+        cut = [t[:, :, x0:x0 + 10].contiguous() for t in geo]
+        cutc = [t[:, :, x0:x0 + 10].contiguous() for t in corr]
+        dj = disp[..., x0:x0 + 10].contiguous()
+        out = kernels.disparity_lookup_shard(cut, cutc, dj, 4, x0, out_dtype=dtype)
+        ref = sampler.disparity_lookup(cut, cutc, dj, 4, out_dtype=dtype, x_offset=x0)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
+    kernels.reset_launches()
+    got = sharded.disparity_lookup_sharded(
+        sharded.shard_pyramids(geo, corr, _one_card_mesh(cuda)), disp, 4, dtype)
+    assert kernels.LAUNCHES["disparity_lookup_shard"] == 4
+    assert torch.equal(got, kernels.disparity_lookup(geo, corr, disp, 4, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_sliced_attention_kernel(cuda, dtype):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(2, 1100, 3, 8, 64, device=cuda, generator=g).to(dtype)
+    for h0 in (0, 2, 6):
+        out = kernels.flash_attention_heads(qkv, 0.125, h0, 2)
+        ref = kernels.flash_attention_plain(qkv[:, :, :, h0:h0 + 2].float(), 0.125)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, rtol=0, atol=1e-5)
+        else:
+            err = (out.float() - ref).abs()
+            assert float(err.max()) <= 2 * _bf16_ulp(float(ref.abs().max()))
+            assert float(err.mean()) <= _bf16_ulp(float(ref.abs().mean()))
+    kernels.reset_launches()
+    got = sharded.flash_attention_sharded(qkv, 0.125, _one_card_mesh(cuda))
+    assert kernels.LAUNCHES["flash_attention_heads"] == 4
+    assert torch.equal(got, kernels.flash_attention(qkv, 0.125))
+
+
+def test_sharded_kernels_on_distinct_cards(two_cards):
+    """Shards on two cards, gathered on the first: the same bits as one card."""
+    c0, c1 = two_cards
+    mesh = make_mesh(devices=[c0, c1, c0, c1])
+    g = torch.Generator(device=c0).manual_seed(12)
+    l, r = (_uniform(g, 1, 64, 5, 96, device=c0).bfloat16() for _ in range(2))
+    rp = _uniform(g, 1, 12, 5, 96, device=c0).bfloat16()
+    got = sharded.cost_volume_parts_sharded(l, r, rp, 40, 8, mesh, out_dtype=torch.bfloat16)
+    want = kernels.cost_volume_parts(l, r, rp, 40, 8, out_dtype=torch.bfloat16)
+    assert got[0].device == c0 and all(torch.equal(a, b) for a, b in zip(got, want))
+    qkv = torch.randn(2, 1100, 3, 4, 64, device=c0, generator=g).bfloat16()
+    assert torch.equal(sharded.flash_attention_sharded(qkv, 0.125, mesh),
+                       kernels.flash_attention(qkv, 0.125))
+
+
+def test_model_on_the_second_card_while_the_first_is_current(two_cards):
+    """The wrappers launch on their tensors' device and stream, not the
+    current device's."""
+    c0, c1 = two_cards
+    cfg = ModelConfig(vit_size="vits", max_disp=64, mixed_precision=True)
+    g = torch.Generator().manual_seed(13)
+    left, right = (torch.rand(1, 64, 96, 3, generator=g) * 255 for _ in range(2))
+    outs = []
+    for dev in (c0, c1):
+        model = FoundationStereo(cfg, device=dev, seed=0)
+        kernels.reset_launches()
+        with torch.cuda.device(c0), torch.no_grad():
+            outs.append(model(left.to(dev), right.to(dev), iters=2).cpu())
+        torch.cuda.synchronize(dev)
+        assert kernels.LAUNCHES["cost_volume_parts"] == 1
+        assert kernels.LAUNCHES["disparity_lookup"] == 2
+    assert bool(torch.isfinite(outs[1]).all())
+    diff = (outs[0] - outs[1]).abs()
+    assert float(diff.mean()) <= 0.05 and float(torch.quantile(diff.flatten(), 0.99)) <= 0.5
+
+
+def test_conv3x3_on_the_second_card(two_cards):
+    """K4 sets its shared-memory attribute on each device it launches on."""
+    c0, c1 = two_cards
+    for dev in (c0, c1):
+        x, wt, bias = _conv_inputs(dev, 14, 128, 128, (6, 20), torch.bfloat16)
+        out = kernels.conv3x3(x, wt, bias)
+        torch.cuda.synchronize(dev)
+        assert out.device == dev
+        _assert_conv_close(out, kernels.conv3x3_plain(x, wt, bias))
+
+
+def test_model_under_a_one_card_mesh(cuda):
+    """The sharded forward on one card (4 shards) equals the unsharded one
+    and launches the sharded kernels only; the mesh turns K4 off."""
+    cfg = ModelConfig(vit_size="vits", max_disp=64, mixed_precision=True, pallas_conv3x3=True)
+    model = FoundationStereo(cfg, device=cuda, seed=0)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    left, right = (torch.rand(1, 64, 128, 3, device=cuda, generator=g) * 255 for _ in range(2))
+    kernels.reset_launches()
+    with mesh_context(_one_card_mesh(cuda)), torch.no_grad():
+        got = model(left, right, iters=2)
+    assert kernels.LAUNCHES == {"cost_volume_parts": 0, "cost_volume_parts_haloed": 4,
+                                "disparity_lookup": 0, "disparity_lookup_shard": 8,
+                                "flash_attention": 0, "flash_attention_heads": 0, "conv3x3": 0}
+    model_ref = FoundationStereo(cfg.replace(pallas_conv3x3=False), device=cuda, seed=0)
+    with torch.no_grad():
+        want = model_ref(left, right, iters=2)
+    assert torch.equal(got, want)

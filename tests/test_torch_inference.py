@@ -76,7 +76,7 @@ def test_whole_forward_with_k4_routing_matches_jax(models):
         got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS).numpy()
     assert got.shape == want.shape == (1, 64, 96)
     assert float(np.abs(got - want).max()) <= 1e-2
-    assert kernels.LAUNCHES == {name: 0 for name in kernels.SOURCES}     # CPU: twins only
+    assert not any(kernels.LAUNCHES.values())                          # CPU: twins only
 
 
 def test_run_hierarchical_matches_jax(models):

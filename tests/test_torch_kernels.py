@@ -158,7 +158,7 @@ def test_cpu_wrappers_take_the_twins_and_count_nothing(rng):
     qkv = torch.from_numpy(rng.standard_normal((1, 40, 3, 2, 64)).astype(np.float32))
     assert torch.equal(kernels.flash_attention(qkv, 0.125),
                        kernels.flash_attention_plain(qkv, 0.125))
-    assert kernels.LAUNCHES == {name: 0 for name in kernels.SOURCES}
+    assert not any(kernels.LAUNCHES.values())
 
 
 def test_kernel_sources_and_build_paths():
