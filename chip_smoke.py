@@ -14,10 +14,11 @@ Phases:
               error against the stated tolerance (and relative to max |twin|),
               kernel / plain / library times (CUDA events) and the least time
               the card could take (``bound_ms``, from the bytes and operations
-              of this run's inputs). The 3x3 conv (K4) is held at five shapes
-              of the main path (the largest refinement conv, a ragged F = 127,
-              the 1/16 level, the hourglass's (1, 3, 3) conv on the 5D volume,
-              and the largest conv again in fp32).
+              of this run's inputs). The 3x3 conv (K4) is held at seven
+              shapes of the main path (the largest refinement conv, a ragged
+              F = 127, the 1/16 level, the hourglass's (1, 3, 3) conv on the
+              5D volume, the F = 64 mask conv, the 1/8 level, and the largest
+              conv again in fp32), each with its grid's size.
 4. path    -- the whole forward at a reduced size (448x672, 4 iterations)
               through the kernels, through the kernels with the 3x3 conv
               kernel (``pallas_conv3x3``), and through the plain twins, with
@@ -54,8 +55,9 @@ Phases:
               on distinct cards and must give the same disparity.
 
 ``--profile`` adds a per-module and per-op time breakdown of one 736x1280 pair
-for the served configuration, for the one with the 3x3 conv kernel and for
-the served configuration under the mesh.
+for the served configuration, for the one with the 3x3 conv kernel (with
+K4's launches, device time and bound per conv shape) and for the served
+configuration under the mesh.
 
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
@@ -70,6 +72,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +99,21 @@ K4_OUTSIDE, K4_PER_ITER = 53, 16
 MESH_SHARDS = 4
 # ViT tokens at the main path: 736x1280 is resized to 784x1344 patches of 14.
 VIT_TOKENS = (784 // 14) * (1344 // 14) + 1
+# K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
+# dtype). Every bf16 tile path is among them.
+_H4, _W4 = MAIN["height"] // 4, MAIN["width"] // 4
+K4_CASES = [
+    ("gru04.conv1 512->512", 512, 512, (_H4, _W4), "bfloat16"),
+    ("encoder.conv 320->127", 320, 127, (_H4, _W4), "bfloat16"),
+    ("gru16 z/r 384->256", 384, 256, (_H4 // 4, _W4 // 4), "bfloat16"),
+    ("hourglass (1,3,3) 168->168, 5D", 168, 168,
+     (MAIN["max_disp"] // 32, MAIN["height"] // 32, MAIN["width"] // 32), "bfloat16"),
+    ("mask.0 128->64", 128, 64, (_H4, _W4), "bfloat16"),
+    ("gru08.conv1 512->512", 512, 512, (_H4 // 2, _W4 // 2), "bfloat16"),
+    ("gru04.conv1 512->512 fp32", 512, 512, (_H4, _W4), "float32"),
+]
+# K4's kernels in a profiler's kernel names.
+K4_KERNEL = re.compile(r"conv3x3_\w+(<[^>]*>)?")
 
 
 def log(msg: str) -> None:
@@ -103,19 +121,40 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean milliseconds per call over ``reps`` calls, timed with CUDA events."""
+    """Mean device milliseconds per call over ``reps`` calls, timed with CUDA
+    events. The calls queue behind a device sleep (~1.5 ms per call at the
+    card's clock), so that the host's launch overhead does not leave the card
+    idle between them: the time is the device's, not the host's."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(int(3e6 * reps))
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def host_us_per_call(fn, calls: int = 2000) -> float:
+    """Host microseconds per call over ``calls`` calls that queue on the card
+    without a synchronisation between them (the host's own cost where the
+    kernel is shorter)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
@@ -365,26 +404,29 @@ def _conv_errors(x, w, bias, out, ref):
     return float(diff.max()), mean_err, bool((diff <= tol).all()), mean_err <= mean_tol
 
 
+def k4_launched() -> dict:
+    """The last K4 launch's blocks and block tile, as its C entry point
+    reported them."""
+    from foundationstereo_torch.ops import kernels
+
+    (gx, gy, gz), (rows, cols, ch) = (kernels.CONV3X3_LAUNCHED[k] for k in ("grid", "tile"))
+    return dict(blocks=gx * gy * gz, tile=f"{rows}x{cols} px x {ch} ch")
+
+
 def check_conv3x3(dev, gen) -> dict:
     import torch
     import torch.nn.functional as F
 
     from foundationstereo_torch.ops import kernels
 
-    h4, w4 = MAIN["height"] // 4, MAIN["width"] // 4
-    d32, h32, w32 = MAIN["max_disp"] // 32, MAIN["height"] // 32, MAIN["width"] // 32
-    cases = [  # (name, C, F, spatial after the channel axis, dtype)
-        ("gru04.conv1 512->512", 512, 512, (h4, w4), torch.bfloat16),
-        ("encoder.conv 320->127", 320, 127, (h4, w4), torch.bfloat16),
-        ("gru16 z/r 384->256", 384, 256, (h4 // 4, w4 // 4), torch.bfloat16),
-        ("hourglass (1,3,3) 168->168, 5D", 168, 168, (d32, h32, w32), torch.bfloat16),
-        ("gru04.conv1 512->512 fp32", 512, 512, (h4, w4), torch.float32),
-    ]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     row = None
-    for name, c, f, spatial, dtype in cases:
+    for name, c, f, spatial, dtype in K4_CASES:
+        dtype = getattr(torch, dtype)
         x, w, bias = _conv_case(dev, gen, c, f, spatial, dtype)
         packed = kernels.pack_conv3x3_weight(w, dtype)
         out = kernels.conv3x3(x, w, bias, packed)
+        grid = k4_launched()
         ref = kernels.conv3x3_plain(x, w, bias)
         torch.cuda.synchronize()
         err, mean_err, ok, mean_ok = _conv_errors(x, w, bias, out, ref)
@@ -398,7 +440,8 @@ def check_conv3x3(dev, gen) -> dict:
         log(f"[kernels] conv3x3 {name} {tuple(x.shape)}: max abs err {err:.3g}, mean abs err "
             f"{mean_err:.3g} (per element <= 1 bf16 ulp + 2(9C-1) 2^-24 sum|x w| -> {ok}; "
             f"mean -> {mean_ok}); {ms:.4g} ms, F.conv2d {library_ms:.4g} ms, bound {b_ms:.4g} ms "
-            f"({b_by}), {flops / ms / 1e9:.4g} TFLOP/s")
+            f"({b_by}), {flops / ms / 1e9:.4g} TFLOP/s; grid {grid['blocks']} blocks "
+            f"({grid['tile']}) on {sms} SMs")
         check(ok and mean_ok, f"conv3x3 {name} disagrees with its twin")
         if row is None:                              # the largest bf16 conv is the row's shape
             plain_ms = cuda_ms(lambda: kernels.conv3x3_plain(x, w, bias), 2)
@@ -411,9 +454,18 @@ def check_conv3x3(dev, gen) -> dict:
                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                        library_ms=library_ms, cases={})
         row["cases"][name] = dict(max_abs_err=err, mean_abs_err=mean_err, ms=ms,
-                                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by)
+                                  library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
+                                  grid=grid)
         del x, out, ref, packed
         torch.cuda.empty_cache()
+    # The host's own cost per call, at the 1/16-level z/r conv's channels on
+    # an 8x64 image: the kernel is shorter than it, so the card idles.
+    x, w, bias = _conv_case(dev, gen, 384, 256, (8, 64), torch.bfloat16)
+    packed, wl, bl = kernels.pack_conv3x3_weight(w, x.dtype), w.to(x.dtype), bias.to(x.dtype)
+    host_us = host_us_per_call(lambda: kernels.conv3x3(x, w, bias, packed))
+    conv2d_us = host_us_per_call(lambda: F.conv2d(x, wl, bl, padding=1))
+    log(f"[kernels] conv3x3 384->256 on 8x64: host time per call {host_us:.1f} us, F.conv2d "
+        f"{conv2d_us:.1f} us")
     return row
 
 
@@ -830,37 +882,89 @@ def mesh_phase(dev, requests: int, profile: bool = False) -> tuple[list, dict]:
     return rows, launches
 
 
-def k4_work_hooks(model, work: dict) -> list:
-    """Forward pre-hooks that add each routed 3x3 conv's launches and the
-    least time of each launch (bytes: input, weight and output once; operations:
-    2 * 9 * C * F per output pixel) to ``work``. Returns the hook handles."""
-    import torch
+class K4Account:
+    """Times every K4 call of a run with CUDA events around it, grouped by
+    shape (C, F, H, W, images), beside each group's summed bound (bytes:
+    input, weight and output once; operations: 2 * 9 * C * F per output
+    pixel). Wraps ``kernels.conv3x3`` while it is entered, which is where the
+    routed convs look it up. The events time the call on the pair's
+    timeline, host gaps included where the card waits for the launch;
+    ``report`` also re-times one call of each shape alone (``cuda_ms``, the
+    kernel's device time) and multiplies by its launches."""
 
-    def add(x, c, f, n_pix, launches, esize):
-        peak = BF16_FLOPS if esize == 2 else FP32_FLOPS
-        for _ in range(launches):
-            b_ms, _by = bound((x.numel() + 9 * c * f + f * n_pix) * esize, 2.0 * 9 * c * f * n_pix, peak)
-            work["launches"] += 1
-            work["flop"] += 2.0 * 9 * c * f * n_pix
-            work["bound_ms"] += b_ms
+    def __init__(self):
+        self.calls = []          # (shape key, bound ms, flop, start event, end event)
+        self.first = {}          # shape key -> the first call's arguments
+        self.grid = {}           # shape key -> k4_launched() of its last call
 
-    def hook(m, args):
-        esize = torch.finfo(getattr(m, "cdt", None) or m.convz.cdt).bits // 8
-        if hasattr(m, "convz"):                          # the fused z/r conv of a GRU
-            hx = args[2]
-            add(hx, hx.shape[1], 2 * m.convz.out_channels, hx[:, 0].numel(), 1, esize)
-        else:
-            x = args[0]
-            launches = m.kernel_size[0] if m.k4 == "taps" else 1
-            add(x, m.in_channels, m.out_channels, x[:, 0].numel(), launches, esize)
+    def __enter__(self):
+        import torch
 
-    return [m.register_forward_pre_hook(hook) for m in model.modules() if getattr(m, "k4", None)]
+        from foundationstereo_torch.ops import kernels
+
+        self._kernels, self._wrapped = kernels, kernels.conv3x3
+
+        def timed(x, weight, *args, **kwargs):
+            f, c = weight.shape[:2]
+            h, w = x.shape[-2:]
+            images = x.numel() // (c * h * w)
+            esize = x.element_size()
+            flop = 2.0 * 9 * c * f * images * h * w
+            b_ms, _ = bound((x.numel() + 9 * c * f + f * images * h * w) * esize, flop,
+                            BF16_FLOPS if esize == 2 else FP32_FLOPS)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._wrapped(x, weight, *args, **kwargs)
+            end.record()
+            self.calls.append(((c, f, h, w, images), b_ms, flop, start, end))
+            self.first.setdefault((c, f, h, w, images), (x, weight, args, kwargs))
+            self.grid[(c, f, h, w, images)] = k4_launched()
+            return out
+
+        kernels.conv3x3 = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._kernels.conv3x3 = self._wrapped
+
+    def report(self) -> None:
+        """Per shape: launches, ms on the pair's timeline, kernel ms (alone x
+        launches), summed bound, TF/s of the kernel ms, grid; then totals."""
+        if not self.calls:
+            return
+        groups: dict = {}
+        for key, b_ms, flop, start, end in self.calls:
+            g = groups.setdefault(key, [0, 0.0, 0.0, 0.0])
+            g[0] += 1
+            g[1] += start.elapsed_time(end)
+            g[2] += b_ms
+            g[3] += flop
+        alone = {}
+        for key, (x, weight, args, kwargs) in self.first.items():
+            alone[key] = groups[key][0] * cuda_ms(lambda: self._wrapped(x, weight, *args, **kwargs), 5)
+        self.first.clear()
+        log("[profile] conv3x3 (K4) by shape over the pair: ms on the pair's timeline (CUDA events "
+            "around each call) and kernel ms (one call re-timed alone x launches):")
+        log(f"[profile]   {'C->F':>9s} {'H x W':>9s} {'images':>6s} {'launches':>8s} {'timeline':>9s} "
+            f"{'kernel':>8s} {'bound':>8s} {'TF/s':>6s}  grid")
+        for key, (k, ms, b_ms, flop) in sorted(groups.items(), key=lambda kv: -alone[kv[0]]):
+            c, f, h, w, n = key
+            grid = self.grid[key]
+            log(f"[profile]   {f'{c}->{f}':>9s} {f'{h}x{w}':>9s} {n:6d} {k:8d} {ms:9.3f} "
+                f"{alone[key]:8.3f} {b_ms:8.4f} {flop / alone[key] / 1e9:6.1f}  "
+                f"{grid['blocks']} x {grid['tile']}")
+        log(f"[profile] conv3x3 work of the pair: {len(self.calls)} launches, "
+            f"{sum(g[3] for g in groups.values()) / 1e12:.4g} TFLOP, "
+            f"{sum(g[1] for g in groups.values()):.2f} ms on the pair's timeline, "
+            f"{sum(alone.values()):.2f} ms of kernel time, least time "
+            f"{sum(g[2] for g in groups.values()):.4g} ms (the sum of each launch's bound)")
 
 
 def profile_pair(model, pair) -> None:
     """One more request, timed per top-level module with CUDA events (what
     no module covers -- the cost-volume build, the pyramids, the lookups --
-    is the remainder), then under torch.profiler for the top device ops."""
+    is the remainder); then, where K4 runs, one with K4's per-shape
+    accounting; then one under torch.profiler for the top device ops."""
     import torch
 
     from foundationstereo_torch.inference.demo import run_pair
@@ -885,8 +989,6 @@ def profile_pair(model, pair) -> None:
     for name, child in model.named_children():
         handles += [child.register_forward_pre_hook(pre(name)),
                     child.register_forward_hook(post(name))]
-    work = dict(launches=0, flop=0.0, bound_ms=0.0)
-    handles += k4_work_hooks(model, work)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     run_pair(model, *pair, iters=MAIN["iters"])
@@ -894,10 +996,6 @@ def profile_pair(model, pair) -> None:
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    if work["launches"]:
-        log(f"[profile] conv3x3 work of the pair: {work['launches']} launches, "
-            f"{work['flop'] / 1e12:.4g} TFLOP, least time {work['bound_ms']:.4g} ms (the sum of each "
-            f"launch's bound)")
     total = start.elapsed_time(end)
     per = {n: sum(a.elapsed_time(b) for a, b in evs) for n, evs in spans.items()}
     per["(outside modules: cost volume, pyramids, lookups, glue)"] = total - sum(per.values())
@@ -906,6 +1004,13 @@ def profile_pair(model, pair) -> None:
         log(f"[profile]   {n:58s} {ms:9.2f} ms  {100 * ms / total:5.1f} %  "
             f"({len(spans.get(n, [None]))} calls)")
 
+    # K4's accounting in a pass of its own: its events and bookkeeping per
+    # call cost host time, which the pair's time above does not carry.
+    with K4Account() as k4:
+        run_pair(model, *pair, iters=MAIN["iters"])
+    torch.cuda.synchronize()
+    k4.report()
+
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
@@ -913,10 +1018,17 @@ def profile_pair(model, pair) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3   # kernels only
+    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]   # kernels only
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
     log(f"[profile] under the profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall:.1f} %)")
+    k4 = [e for e in kern if "conv3x3" in e.key]
+    if k4:
+        log(f"[profile] K4 kernels under the profiler: "
+            f"{sum(e.self_device_time_total for e in k4) / 1e3:.2f} ms of device time over "
+            f"{sum(e.count for e in k4)} launches ("
+            + ", ".join(f"{K4_KERNEL.search(e.key).group(0)}: "
+                        f"{e.self_device_time_total / 1e3:.2f} ms / {e.count}" for e in k4) + ")")
     log(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 

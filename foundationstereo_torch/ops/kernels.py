@@ -68,7 +68,7 @@ ENTRY_POINTS = {
     "cost_volume_parts_haloed": ("cost_volume_parts", [_P] * 5 + [_I] * 11 + [_P]),
     "disparity_lookup": ("disparity_lookup", [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_P]),
     "flash_attention": ("flash_attention", [_P, _P] + [_I] * 5 + [ctypes.c_float, _I, _P]),
-    "conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 7 + [_P]),
+    "conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 9 + [_P, _P]),
 }
 
 # Launches per wrapper since the last reset_launches(); counted only where a
@@ -76,6 +76,10 @@ ENTRY_POINTS = {
 LAUNCHES = {name: 0 for name in ("cost_volume_parts", "cost_volume_parts_haloed",
                                  "disparity_lookup", "disparity_lookup_shard",
                                  "flash_attention", "flash_attention_heads", "conv3x3")}
+
+# The last conv3x3 launch as its C entry point made it: the grid (x, y, z)
+# and a block's tile (output rows, columns, channels).
+CONV3X3_LAUNCHED: dict = {}
 
 _fns: dict = {}   # name -> the loaded C entry point fs_<name>
 _lock = threading.Lock()
@@ -354,15 +358,84 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return acc.to(x.dtype)
 
 
+def _pack_rows(f: int) -> int:
+    """Output channels per packed bf16 weight tile: 64 where F <= 64, else 128."""
+    return 64 if f <= 64 else 128
+
+
+def _packed_shape(f: int, c: int, dtype: torch.dtype) -> tuple[int, ...]:
+    if dtype == torch.bfloat16:
+        t = _pack_rows(f)
+        return (-(-f // t), -(-c // 64), 9, t, 64)
+    return (9, -(-f // 128) * 128, -(-c // 16) * 16)
+
+
 def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(F, C, 3, 3) -> the kernel's (9, Fp, Cp) layout in ``dtype``: taps
-    major, input channels contiguous, zero-padded to Fp % 128 == 0 and
-    Cp % 16 == 0. Callers cache it (a parameter is packed once)."""
+    """(F, C, 3, 3) -> the kernel's weight layout in ``dtype``, zero-padded.
+    Callers cache it (a parameter is packed once).
+
+    bfloat16 (the wgmma kernel): (Fp / T, Cp / 64, 9, T, 64) with T = 64
+    where F <= 64, else 128; Fp and Cp are F and C padded to multiples of T
+    and 64. Entry [m, k, tap] is the tile of output channels m*T..m*T+T-1,
+    input channels k*64..k*64+63 and tap dy*3+dx, contiguous (16 KB at T =
+    128), in the exact shared-memory image wgmma's B descriptor reads:
+    K-major (row n holds the tile's 64 input channels, 128 bytes) with the
+    128-byte swizzle (the 16-byte group of channels 8q..8q+7 of row n sits at
+    group position q ^ (n % 8)).
+
+    float32 (the FMA kernel): (9, Fp, Cp), taps major, input channels
+    contiguous, Fp % 128 == 0 and Cp % 16 == 0.
+    """
     f, c = weight.shape[:2]
-    packed = torch.zeros((9, -(-f // 128) * 128, -(-c // 16) * 16), device=weight.device,
-                         dtype=dtype)
-    packed[:, :f, :c] = weight.detach().to(dtype).permute(2, 3, 0, 1).reshape(9, f, c)
-    return packed
+    shape = _packed_shape(f, c, dtype)
+    w = weight.detach().to(dtype)
+    if dtype != torch.bfloat16:
+        packed = torch.zeros(shape, device=weight.device, dtype=dtype)
+        packed[:, :f, :c] = w.permute(2, 3, 0, 1).reshape(9, f, c)
+        return packed
+    nf, nc, _, t, _ = shape
+    padded = torch.zeros((nf * t, nc * 64, 3, 3), device=weight.device, dtype=dtype)
+    padded[:f, :c] = w
+    # (Fp/T, T, Cp/64, 8 groups, 8, 9 taps) -> (Fp/T, Cp/64, 9, T, 8 groups, 8)
+    tiles = padded.reshape(nf, t, nc, 8, 8, 9).permute(0, 2, 5, 1, 3, 4)
+    n = torch.arange(t, device=weight.device)[:, None]
+    q = torch.arange(8, device=weight.device)[None, :]
+    return tiles[:, :, :, n, q ^ (n % 8)].reshape(shape).contiguous()
+
+
+def conv3x3_rows(f: int, h: int, w: int, images: int, sms: int) -> int:
+    """R, the output rows per consumer warpgroup of the bf16 kernel (a block
+    is 2R rows x 64 columns x BN output channels, BN the packed tile's rows),
+    for F output channels of ``images`` HxW images on a card with ``sms`` SMs
+    (one block per SM at a time): the R with the fewer waves x (BN x R + 96),
+    a wave's time in units of one 64-pixel row of one channel plus a block's
+    fixed cost (the first patch load, the pipeline's fill, the epilogue).
+    The 96 is fitted to the card: R = 2 won at 92x160 (3 waves against 5)
+    and R = 1 at 13 x 23x40 (3 against 2); ``tools/k4_timing.py`` times
+    both R at the main path's shapes. Ties go to R = 2, which reads fewer
+    bytes per FLOP."""
+    bn = _pack_rows(f)
+
+    def cost(rows):
+        return -(-conv3x3_blocks(f, h, w, images, rows) // sms) * (bn * rows + 96)
+
+    return 2 if cost(2) <= cost(1) else 1
+
+
+def conv3x3_blocks(f: int, h: int, w: int, images: int, rows: int) -> int:
+    """The bf16 kernel's grid size: N blocks x pixel tiles (2R rows x 64
+    columns) x images."""
+    return -(-f // _pack_rows(f)) * -(-h // (2 * rows)) * -(-w // 64) * images
+
+
+_sms: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sms:
+        _sms[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sms[index]
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
@@ -374,6 +447,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
     added in fp32 before the one rounding. Returns (N, F, H, W) or (B, F, D,
     H, W) in x's dtype, float32 or bfloat16. ``packed`` is
     ``pack_conv3x3_weight(weight, x.dtype)``, made here when not given.
+    bfloat16 runs the wgmma kernel with the rows ``conv3x3_rows`` picks for
+    the shape and the card; float32 the FMA kernel.
     """
     if not _on_cuda(x, weight):
         return conv3x3_plain(x, weight, bias)
@@ -395,16 +470,25 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
     _require(0 < n_outer * n_inner <= 65535, f"{n_outer * n_inner} images: at most 65535")
     if packed is None:
         packed = pack_conv3x3_weight(weight, x.dtype)
-    _require(packed.ndim == 3 and packed.shape[0] == 9 and packed.shape[1] % 128 == 0
-             and packed.shape[2] % 16 == 0 and packed.shape[1] >= f and packed.shape[2] >= c
+    _require(tuple(packed.shape) == _packed_shape(f, c, x.dtype)
              and packed.dtype == x.dtype and packed.is_contiguous()
              and packed.data_ptr() % 16 == 0 and packed.device == x.device,
              "packed must be pack_conv3x3_weight(weight, x.dtype) on x's device")
     if bias is not None:
         _require(bias.shape == (f,) and bias.device == x.device, f"bias {tuple(bias.shape)}")
         bias = bias.float().contiguous()
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        pack_n = packed.shape[3]
+        fp, cp = packed.shape[0] * pack_n, packed.shape[1] * 64
+        rows = conv3x3_rows(f, h, w, n_outer * n_inner, _sm_count(x.device))
+    else:
+        pack_n, rows = 0, 0
+        fp, cp = packed.shape[1], packed.shape[2]
+    launched = (ctypes.c_int * 6)()
     _launch("conv3x3", "conv3x3", x.device,
             x.data_ptr(), packed.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),
             n_outer, n_inner, x.stride(0), xsi, x.stride(1), out.stride(0), osi, out.stride(1),
-            c, h, w, f, packed.shape[2], packed.shape[1], int(x.dtype == torch.bfloat16))
+            c, h, w, f, cp, fp, pack_n, rows, int(bf16), launched)
+    CONV3X3_LAUNCHED.update(grid=tuple(launched[:3]), tile=tuple(launched[3:]))
     return out

@@ -93,6 +93,51 @@ def test_plain_twin_folds_depth_into_the_batch():
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
 
 
+def _unpack_bf16(packed: torch.Tensor) -> np.ndarray:
+    """A plain inverse of the bf16 packed layout, from its definition: entry
+    (f, c, tap) of the (Fp, Cp, 9) weight sits in tile [f // T, c // 64,
+    tap], row n = f % T, at 16-byte group position ((c % 64) // 8) ^ (n % 8),
+    element c % 8. Returns the bits (int16)."""
+    nf, nc, taps, t, k = packed.shape
+    assert (taps, k) == (9, 64) and t in (64, 128)
+    bits = packed.view(torch.int16).numpy()
+    f = np.arange(nf * t)[:, None, None]
+    c = np.arange(nc * 64)[None, :, None]
+    tap = np.arange(9)[None, None, :]
+    n = f % t
+    q = ((c % 64) // 8) ^ (n % 8)
+    return bits[f // t, c // 64, tap, n, q * 8 + c % 8]
+
+
+@pytest.mark.parametrize("f", [64, 127, 256])
+@pytest.mark.parametrize("c", [128, 168, 320, 512])
+def test_packed_bf16_weight_inverts_bit_for_bit(c, f):
+    """The wgmma kernel's weight tiles: T = 64 output channels where F <= 64,
+    else 128; C padded to a multiple of 64 and F to one of T, with zeros."""
+    g = torch.Generator().manual_seed(c + f)
+    w = torch.randn(f, c, 3, 3, generator=g)
+    packed = kernels.pack_conv3x3_weight(w, torch.bfloat16)
+    t = 64 if f <= 64 else 128
+    fp, cp = -(-f // t) * t, -(-c // 64) * 64
+    assert packed.shape == (fp // t, cp // 64, 9, t, 64) and packed.dtype == torch.bfloat16
+    assert packed.is_contiguous()
+    back = _unpack_bf16(packed)                                     # (Fp, Cp, 9), every element once
+    want = w.to(torch.bfloat16).reshape(f, c, 9).view(torch.int16).numpy()
+    assert np.array_equal(back[:f, :c], want)
+    assert not back[f:].any() and not back[:, c:].any()
+
+
+@pytest.mark.parametrize("f,h,w,images,rows", [
+    (512, 184, 320, 1, 2),      # gru04: 920 blocks of 4 rows, 7 waves (14 of 2 rows)
+    (512, 92, 160, 1, 2),       # gru08: 3 waves of 4 rows beat 5 of 2
+    (256, 46, 80, 1, 1),        # gru16 z/r: 48 blocks of 4 rows leave the card 2/3 idle
+    (168, 23, 40, 13, 1),       # the hourglass (1, 3, 3) conv: 3 waves of 2 rows beat 2 of 4
+    (64, 184, 320, 1, 2),       # mask.0 (64-channel tiles)
+])
+def test_conv3x3_rows_fills_the_card(f, h, w, images, rows):
+    assert kernels.conv3x3_rows(f, h, w, images, 132) == rows
+
+
 @pytest.mark.parametrize("k,stride,pad,mode", [
     ((1, 3, 3), 1, (0, 1, 1), "fold"),
     ((3, 3, 3), 1, 1, "taps"),

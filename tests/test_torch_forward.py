@@ -185,10 +185,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, and chip_smoke.py, in a fresh interpreter
-    where importing jax or the JAX package raises."""
+    """Every module of the port, chip_smoke.py and tools/k4_timing.py, in a
+    fresh interpreter where importing jax or the JAX package raises."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 
 class Block:
     def find_spec(self, name, path=None, target=None):
@@ -201,6 +201,8 @@ names = [m.name for m in pkgutil.walk_packages(foundationstereo_torch.__path__,
                                                "foundationstereo_torch.")]
 for n in names:
     importlib.import_module(n)
+spec = importlib.util.spec_from_file_location("k4_timing", "tools/k4_timing.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "foundationstereo_tpu")]
 assert not bad, bad
 print(len(names))
@@ -218,3 +220,12 @@ def test_chip_smoke_fails_without_cuda():
                          text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_k4_timing_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, "tools/k4_timing.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr

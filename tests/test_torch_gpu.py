@@ -19,6 +19,7 @@ Tests that need two cards skip below that.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import pytest
@@ -143,8 +144,13 @@ def _assert_conv_close(out, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,f,h,w", [(136, 127, 7, 45), (200, 70, 9, 33), (128, 256, 4, 32),
-                                     (16, 8, 3, 5)])
+@pytest.mark.parametrize("c,f,h,w", [
+    (136, 127, 7, 45), (200, 70, 9, 33), (128, 256, 4, 32), (16, 8, 3, 5),
+    (168, 64, 13, 80),     # C % 64 != 0, F <= 64 (64-channel weight tiles), H % 4 != 0
+    (128, 96, 6, 130),     # W % 64 == 2: a third column tile of two pixels
+    (384, 256, 46, 80),    # the 1/16-level z/r conv
+    (256, 128, 23, 40),    # the hourglass level's width, ragged H
+])
 def test_conv3x3_kernel(cuda, dtype, c, f, h, w):
     x, wt, bias = _conv_inputs(cuda, 5, c, f, (h, w), dtype)
     kernels.reset_launches()
@@ -153,6 +159,27 @@ def test_conv3x3_kernel(cuda, dtype, c, f, h, w):
     assert kernels.LAUNCHES["conv3x3"] == 1
     _assert_conv_close(out, kernels.conv3x3_plain(x, wt, bias))
     _assert_conv_close(kernels.conv3x3(x, wt), kernels.conv3x3_plain(x, wt))
+
+
+@pytest.mark.parametrize("f", [127, 64])
+@pytest.mark.parametrize("rows", [1, 2])
+@pytest.mark.parametrize("w", [45, 48])
+def test_conv3x3_kernel_every_tile(cuda, monkeypatch, f, rows, w):
+    """Each bf16 tile (128 or 64 output channels by 2 or 4 rows; the wrapper
+    picks the rows from the shape and the card's SM count) at ragged C, F
+    and H, with 2-byte (W = 45) and 16-byte (W = 48) input loads, on the 5D
+    volume read in place."""
+    monkeypatch.setattr(kernels, "conv3x3_rows", lambda *args: rows)
+    x, wt, bias = _conv_inputs(cuda, 16, 200, f, (3, 7, w), torch.bfloat16)
+    vol = x[:, :, ::2]
+    out = kernels.conv3x3(vol, wt, bias)
+    bn = 64 if f <= 64 else 128
+    assert kernels.CONV3X3_LAUNCHED == dict(
+        grid=(-(-f // bn), -(-7 // (2 * rows)) * -(-w // 64), 2 * vol.shape[2]),
+        tile=(2 * rows, 64, bn))
+    want = torch.stack([kernels.conv3x3_plain(vol[:, :, d], wt, bias)
+                        for d in range(vol.shape[2])], dim=2)
+    _assert_conv_close(out, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -175,13 +202,13 @@ def test_conv3x3_errors_raise_and_do_not_fall_back(cuda):
         kernels.conv3x3(x, wt, None, kernels.pack_conv3x3_weight(wt, torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
         kernels.conv3x3(x.transpose(2, 3), wt.transpose(2, 3).contiguous())
-    # A launch the C side refuses (a weight padded to 100 rows, not 128):
-    # its CUDA error raises, and nothing is counted.
-    packed = torch.zeros(9, 100, 128, device=cuda, dtype=torch.bfloat16)
+    # A launch the C side refuses (C padded to 144, a multiple of 16 but not
+    # of the 64-channel chunk): its CUDA error raises, and nothing is counted.
+    packed = torch.zeros(1, 3, 9, 64, 48, device=cuda, dtype=torch.bfloat16)
     out = torch.empty(2, 64, 4, 8, device=cuda, dtype=torch.bfloat16)
     err = kernels._lib("conv3x3")(x.data_ptr(), packed.data_ptr(), 0, out.data_ptr(), 2, 1,
                                   x.stride(0), 0, x.stride(1), out.stride(0), 0, out.stride(1),
-                                  128, 4, 8, 64, 128, 100, 1,
+                                  128, 4, 8, 64, 144, 64, 64, 2, 1, (ctypes.c_int * 6)(),
                                   torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels._check("conv3x3", err)
