@@ -14,8 +14,15 @@ Phases:
               error against the stated tolerance (and relative to max |twin|),
               kernel / plain / library times (CUDA events) and the least time
               the card could take (``bound_ms``, from the bytes and operations
-              of this run's inputs). The 3x3 conv (K4) is held at seven
-              shapes of the main path (the largest refinement conv, a ragged
+              of this run's inputs). For the attention rows (K3 here, K3s in
+              the mesh phase) the operations are of two kinds, the products
+              at the bf16 tensor-core peak and one ex2 per score on the SFUs
+              (16 per SM per clock at the SM clock nvidia-smi reads; the log
+              line gives this exp time), and the rows carry the grid they
+              launched (``kernels.FLASH_ATTENTION_LAUNCHED``; the log adds
+              its waves). The 3x3 conv (K4) is
+              held at seven shapes of the main path (the largest refinement
+              conv, a ragged
               F = 127, the 1/16 level, the hourglass's (1, 3, 3) conv on the
               5D volume, the F = 64 mask conv, the 1/8 level, and the largest
               conv again in fp32), each with its grid's size.
@@ -174,6 +181,56 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def sm_clock_mhz() -> float:
+    """The first card's maximum SM clock as nvidia-smi reads it (MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def exp_ms(scores: float, sms: int, clock_mhz: float) -> float:
+    """The least time of one ex2 per attention score on the SFUs: 16 per SM
+    per clock at the given SM clock."""
+    return scores / (16.0 * sms * clock_mhz * 1e6) * 1e3
+
+
+def attention_bound(nbytes: float, flops: float, scores: float, sms: int,
+                    clock_mhz: float) -> tuple[float, str, float]:
+    """(bound ms, bound by, exp ms) of bf16 attention: ``bound`` with the
+    softmax's exponentials as a second kind of operation, so the larger of
+    the bytes, the products at the tensor-core peak and the exp time."""
+    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+    e_ms = exp_ms(scores, sms, clock_mhz)
+    return max(b_ms, e_ms), ("operations" if e_ms > b_ms else b_by), e_ms
+
+
+def attention_launched() -> dict:
+    """The last K3 / K3s launch's grid size and block tile, as its C entry
+    point reported them."""
+    from foundationstereo_torch.ops import kernels
+
+    (gx, gy, gz), (rows, keys, threads) = (kernels.FLASH_ATTENTION_LAUNCHED[k] for k in ("grid", "tile"))
+    return dict(blocks=gx * gy * gz, tile=f"{rows} query rows x {keys} keys, {threads} threads")
+
+
+def attention_errors(out, ref) -> tuple[float, float, float, float, float, float, bool]:
+    """(max abs err, its tolerance, mean abs err, its tolerance, max |ref|,
+    mean |ref|, within both) of bf16 attention against the fp32 dense
+    reference. bf16 output rounding costs half an ulp, the bf16 probabilities
+    in P @ V a little more: max error <= 2 bf16 ulps of max |ref|, mean error
+    <= 1 bf16 ulp of the typical |ref| (a skipped key tile, a wrong scale or a
+    bad tail mask moves the mean by far more)."""
+    import torch
+
+    diff = (out.float() - ref).abs()
+    err, mean_err = float(diff.max()), float(diff.mean())
+    ref_max, ref_mean = float(ref.abs().max()), float(ref.abs().mean())
+    del diff
+    tol_max = 2 * float(bf16_ulp(torch.tensor(ref_max)))
+    tol_mean = float(bf16_ulp(torch.tensor(ref_mean)))
+    return err, tol_max, mean_err, tol_mean, ref_max, ref_mean, err <= tol_max and mean_err <= tol_mean
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their twins at the main-path shapes
 # ---------------------------------------------------------------------------
@@ -313,25 +370,17 @@ def check_attention(dev, gen) -> dict:
 
     B, N, Hh, hd = 2, VIT_TOKENS, 16, 64
     scale = 1.0 / math.sqrt(hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
     out = kernels.flash_attention(qkv, scale)
+    grid = attention_launched()
     ref = kernels.flash_attention_plain(qkv.float(), scale)    # dense, fp32 throughout
     torch.cuda.synchronize()
-    diff = (out.float() - ref).abs()
-    err, mean_err = float(diff.max()), float(diff.mean())
-    ref_max, ref_mean = float(ref.abs().max()), float(ref.abs().mean())
-    del diff
-    # bf16 output rounding costs half an ulp, the bf16 probabilities in P @ V
-    # a little more: max error <= 2 bf16 ulps of max |ref|, mean error <= 1
-    # bf16 ulp of the typical |ref| (a skipped key tile, a wrong scale or a bad
-    # tail mask moves the mean by far more).
-    tol_max = 2 * float(bf16_ulp(torch.tensor(ref_max)))
-    tol_mean = float(bf16_ulp(torch.tensor(ref_mean)))
+    err, tol_max, mean_err, tol_mean, ref_max, ref_mean, ok = attention_errors(out, ref)
     log(f"[kernels] flash_attention bf16: N={N}, max abs err {err:.3g} (tolerance {tol_max:.3g} "
         f"= 2 bf16 ulps of max |ref| {ref_max:.3g}), mean abs err {mean_err:.3g} (tolerance "
         f"{tol_mean:.3g} = 1 bf16 ulp of mean |ref| {ref_mean:.3g}) vs fp32 dense")
-    check(err <= tol_max and mean_err <= tol_mean,
-          "flash_attention disagrees with the fp32 dense reference")
+    check(ok, "flash_attention disagrees with the fp32 dense reference")
 
     # The fp32 kernel (the model without mixed precision) on the same inputs.
     qkv32 = qkv.float()
@@ -351,9 +400,15 @@ def check_attention(dev, gen) -> dict:
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in qkv.unbind(2))
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
     nbytes = qkv.numel() * 2 + out.numel() * 2
-    b_ms, b_by = bound(nbytes, 4.0 * B * Hh * N * N * hd, BF16_FLOPS)
+    flops = 4.0 * B * Hh * N * N * hd
+    clock = sm_clock_mhz()
+    b_ms, b_by, e_ms = attention_bound(nbytes, flops, B * Hh * N * N, sms, clock)
     log(f"[kernels] flash_attention fp32: {fp32_ms:.4g} ms (bound {fp32_bound_ms:.4g} ms at "
         f"the fp32 peak)")
+    log(f"[kernels] flash_attention bf16: {ms:.4g} ms, {flops / ms / 1e9:.4g} TF/s; bound "
+        f"{b_ms:.4g} ms ({b_by}), exp {e_ms:.4g} ms (one ex2 per score, 16 per SM per clock at "
+        f"{clock:.0f} MHz); SDPA {library_ms:.4g} ms; grid {grid['blocks']} blocks "
+        f"({grid['tile']}), {grid['blocks'] / sms:.2f} waves on {sms} SMs")
     return dict(name="flash_attention", route="cuda",
                 source="foundationstereo_torch/csrc/flash_attention.cu",
                 replaces="foundationstereo_tpu/models/dinov2.py:71",
@@ -362,7 +417,8 @@ def check_attention(dev, gen) -> dict:
                 tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of mean |ref|, "
                           "vs fp32 dense",
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                fp32_max_abs_err=err32, fp32_ms=fp32_ms, fp32_bound_ms=fp32_bound_ms)
+                grid=grid, fp32_max_abs_err=err32, fp32_ms=fp32_ms,
+                fp32_bound_ms=fp32_bound_ms)
 
 
 def _conv_case(dev, gen, c, f, spatial, dtype):
@@ -747,35 +803,35 @@ def check_attention_sharded(dev, gen, mesh) -> dict:
 
     B, N, Hh, hd = 2, VIT_TOKENS, 16, 64
     hl, scale = Hh // MESH_SHARDS, 1.0 / math.sqrt(hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clock = sm_clock_mhz()
     qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
     shards = []
     for j in range(MESH_SHARDS):
         h0 = j * hl
         out = kernels.flash_attention_heads(qkv, scale, h0, hl)
+        grid = attention_launched()
         part = qkv[:, :, :, h0:h0 + hl]
         ref = kernels.flash_attention_plain(part.float(), scale)
         torch.cuda.synchronize()
-        diff = (out.float() - ref).abs()
-        err, mean_err = float(diff.max()), float(diff.mean())
-        ref_max, ref_mean = float(ref.abs().max()), float(ref.abs().mean())
-        del diff, ref
-        tol_max = 2 * float(bf16_ulp(torch.tensor(ref_max)))
-        tol_mean = float(bf16_ulp(torch.tensor(ref_mean)))
-        ok = err <= tol_max and mean_err <= tol_mean
+        err, tol_max, mean_err, tol_mean, _, _, ok = attention_errors(out, ref)
+        del ref
         ms = cuda_ms(lambda: kernels.flash_attention_heads(qkv, scale, h0, hl), 10)
         plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(part, scale), 3)
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in part.unbind(2))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
         del qs, ks, vs
-        b_ms, b_by = bound((part.numel() + out.numel()) * 2, 4.0 * B * hl * N * N * hd, BF16_FLOPS)
+        b_ms, b_by, e_ms = attention_bound((part.numel() + out.numel()) * 2, 4.0 * B * hl * N * N * hd,
+                                           B * hl * N * N, sms, clock)
         log(f"[mesh] flash_attention_heads shard {j}: heads [{h0}, {h0 + hl}), max abs err {err:.3g} "
             f"(tolerance {tol_max:.3g}), mean abs err {mean_err:.3g} (tolerance {tol_mean:.3g}) vs "
             f"fp32 dense -> {ok}; {ms:.4g} ms, plain {plain_ms:.4g} ms, SDPA on the slice "
-            f"{library_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+            f"{library_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}), exp {e_ms:.4g} ms; grid "
+            f"{grid['blocks']} blocks ({grid['tile']}), {grid['blocks'] / sms:.2f} waves")
         check(ok, f"flash_attention_heads shard {j} disagrees with the fp32 dense reference")
         shards.append(dict(shard=j, heads=[h0, h0 + hl], max_abs_err=err, mean_abs_err=mean_err,
                            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                           bound_by=b_by))
+                           bound_by=b_by, grid=grid))
         del out
     got = sharded.flash_attention_sharded(qkv, scale, mesh)
     equal = bool(torch.equal(got, kernels.flash_attention(qkv, scale)))
@@ -788,7 +844,7 @@ def check_attention_sharded(dev, gen, mesh) -> dict:
                       tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of mean |ref|, "
                                 "vs fp32 dense",
                       library_ms=sum(sh["library_ms"] for sh in shards) / len(shards),
-                      sharded_call_ms=sharded_ms)
+                      grid=shards[0]["grid"], sharded_call_ms=sharded_ms)
 
 
 def serve_pairs(model, pairs, label: str) -> tuple[list, list, float]:

@@ -85,9 +85,12 @@ def resolve_device(device) -> torch.device:
 
 
 class FoundationStereo(nn.Module):
-    """``forward(left, right, iters, test_mode=True, init_disp=None)``: left and
-    right are (B, H, W, 3) RGB in [0, 255] with H and W divisible by 32;
-    returns the (B, H, W) disparity.
+    """``forward(left, right, iters=12, test_mode=False, low_memory=False,
+    init_disp=None, train=False)``, the JAX package's ``__call__`` signature:
+    left and right are (B, H, W, 3) RGB in [0, 255] with H and W divisible
+    by 32; with ``test_mode=True`` returns the (B, H, W) disparity.
+    ``low_memory`` is accepted and ignored, as there. The train-mode forward
+    (``test_mode=False`` or ``train=True``) is not ported yet and raises.
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed``
     (the same families of initialisers as the JAX package's flax modules);
@@ -149,10 +152,13 @@ class FoundationStereo(nn.Module):
         for name, b in self.named_buffers():
             b.fill_(1.0 if name.endswith("running_var") else 0.0)
 
-    def forward(self, left, right, iters: int = 12, test_mode: bool = True,
-                init_disp: torch.Tensor | None = None):
-        if not test_mode:
-            raise NotImplementedError("the train-mode forward is not ported yet")
+    def forward(self, left, right, iters: int = 12, test_mode: bool = False,
+                low_memory: bool = False, init_disp: torch.Tensor | None = None,
+                train: bool = False):
+        del low_memory      # part of the reference's forward contract; nothing to gate
+        if not test_mode or train:
+            raise NotImplementedError("the train-mode forward is not ported yet: pass "
+                                      "test_mode=True")
         cfg, dt = self.cfg, self.cdt
         B = left.shape[0]
         D = cfg.max_disp // 4

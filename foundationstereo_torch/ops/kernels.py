@@ -67,7 +67,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 ENTRY_POINTS = {
     "cost_volume_parts_haloed": ("cost_volume_parts", [_P] * 5 + [_I] * 11 + [_P]),
     "disparity_lookup": ("disparity_lookup", [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_P]),
-    "flash_attention": ("flash_attention", [_P, _P] + [_I] * 5 + [ctypes.c_float, _I, _P]),
+    "flash_attention": ("flash_attention", [_P, _P] + [_I] * 5 + [ctypes.c_float, _I, _P, _P]),
     "conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 9 + [_P, _P]),
 }
 
@@ -80,6 +80,9 @@ LAUNCHES = {name: 0 for name in ("cost_volume_parts", "cost_volume_parts_haloed"
 # The last conv3x3 launch as its C entry point made it: the grid (x, y, z)
 # and a block's tile (output rows, columns, channels).
 CONV3X3_LAUNCHED: dict = {}
+# The last flash-attention launch (K3 or K3s) as its C entry point made it:
+# the grid (x, y, z) and a block's tile (query rows, keys per tile, threads).
+FLASH_ATTENTION_LAUNCHED: dict = {}
 
 _fns: dict = {}   # name -> the loaded C entry point fs_<name>
 _lock = threading.Lock()
@@ -321,6 +324,16 @@ def flash_attention_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int
     return _attention("flash_attention_heads", qkv, scale, h0, n_heads)
 
 
+# Query rows per block of the bf16 kernel: 3 consumer warpgroups of 64.
+FLASH_QUERY_ROWS = 192
+
+
+def flash_attention_blocks(n: int, pairs: int) -> int:
+    """The bf16 kernel's grid size for N tokens of ``pairs`` (batch, head)
+    pairs: query tiles of ``FLASH_QUERY_ROWS`` rows x pairs."""
+    return -(-n // FLASH_QUERY_ROWS) * pairs
+
+
 def _attention(name, qkv, scale, h0, n_heads):
     b, n, three, heads, hd = qkv.shape
     _require(three == 3 and hd == 64, f"qkv shape {tuple(qkv.shape)}: want (B, N, 3, H, 64)")
@@ -328,9 +341,13 @@ def _attention(name, qkv, scale, h0, n_heads):
              "qkv must be contiguous, 16-byte aligned float32 or bfloat16")
     _require(0 <= h0 and 1 <= n_heads and h0 + n_heads <= heads,
              f"heads [{h0}, {h0 + n_heads}) of {heads}")
+    bf16 = qkv.dtype == torch.bfloat16
+    _require(scale > 0 or not bf16, f"scale {scale}: the bf16 kernel takes a positive scale")
     out = torch.empty((b, n, n_heads, hd), device=qkv.device, dtype=qkv.dtype)
+    launched = (ctypes.c_int * 6)()
     _launch(name, "flash_attention", qkv.device, qkv.data_ptr(), out.data_ptr(), b, n, n_heads,
-            heads, h0, float(scale), int(qkv.dtype == torch.bfloat16))
+            heads, h0, float(scale), int(bf16), launched)
+    FLASH_ATTENTION_LAUNCHED.update(grid=tuple(launched[:3]), tile=tuple(launched[3:]))
     return out
 
 

@@ -233,7 +233,7 @@ def _port_counts(monkeypatch, vit):
     for iters in (1, 2):
         n[0] = 0
         with torch.no_grad():
-            model(img, img, iters=iters)
+            model(img, img, iters=iters, test_mode=True)
         counts.append(n[0])
     per_iter = counts[1] - counts[0]
     return counts[0] - per_iter, per_iter

@@ -16,6 +16,7 @@
 
 from __future__ import annotations
 
+import inspect
 import os
 import subprocess
 import sys
@@ -78,7 +79,8 @@ def test_whole_forward_matches_jax(jax_model, use_pallas):
     load_jax_variables(model, v)
     kernels.reset_launches()
     with torch.no_grad():
-        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS).numpy()
+        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS,
+                    test_mode=True).numpy()
     assert got.shape == want.shape == (1, H, W)
     assert float(np.abs(got - want).max()) <= 1e-2
     assert not any(kernels.LAUNCHES.values())
@@ -110,7 +112,8 @@ def test_whole_forward_on_a_mesh_matches_jax(jax_model, monkeypatch):
         "disparity_lookup_shard", "conv3x3"])
     mesh = make_mesh(devices=[torch.device("cpu")] * 2)
     with mesh_context(mesh), torch.no_grad():
-        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS).numpy()
+        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS,
+                    test_mode=True).numpy()
     assert calls == {"cost_volume_parts": 0, "cost_volume_parts_haloed": 2, "disparity_lookup": 0,
                      "disparity_lookup_shard": 2 * ITERS, "conv3x3": 0}
     assert got.shape == want.shape == (1, H, W)
@@ -172,9 +175,34 @@ def test_mixed_precision_forward_runs_on_cpu():
     left, right = (torch.from_numpy(rng.uniform(0, 255, (1, H, W, 3)).astype(np.float32))
                    for _ in range(2))
     with torch.no_grad():
-        disp = model(left, right, iters=1)
+        disp = model(left, right, iters=1, test_mode=True)
     assert disp.shape == (1, H, W) and disp.dtype == torch.float32
     assert bool(torch.isfinite(disp).all())
+
+
+def test_forward_signature_is_the_jax_call():
+    """Names, order and defaults of the JAX package's ``__call__``."""
+    def params(fn):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(FoundationStereo.forward) == params(JaxFoundationStereo.__call__)
+
+
+def test_forward_takes_the_jax_call_positionally():
+    """``model(l, r, iters, True, False)`` is the keyword call; the train-mode
+    forward (``test_mode=False``, the default, or ``train=True``) raises until
+    it is ported."""
+    model = FoundationStereo(CFG, device="cpu")
+    rng = np.random.default_rng(3)
+    left, right = (torch.from_numpy(rng.uniform(0, 255, (1, H, W, 3)).astype(np.float32))
+                   for _ in range(2))
+    with torch.no_grad():
+        got = model(left, right, 1, True, False)
+        want = model(left, right, iters=1, test_mode=True, low_memory=False)
+        assert torch.equal(got, want)
+        for kwargs in ({}, {"test_mode": False}, {"test_mode": True, "train": True}):
+            with pytest.raises(NotImplementedError, match="train-mode"):
+                model(left, right, iters=1, **kwargs)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():
@@ -185,8 +213,9 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py and tools/k4_timing.py, in a
-    fresh interpreter where importing jax or the JAX package raises."""
+    """Every module of the port, chip_smoke.py, tools/k4_timing.py and
+    tools/k3_timing.py, in a fresh interpreter where importing jax or the
+    JAX package raises."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
 
@@ -201,8 +230,9 @@ names = [m.name for m in pkgutil.walk_packages(foundationstereo_torch.__path__,
                                                "foundationstereo_torch.")]
 for n in names:
     importlib.import_module(n)
-spec = importlib.util.spec_from_file_location("k4_timing", "tools/k4_timing.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for tool in ("k4_timing", "k3_timing"):
+    spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "foundationstereo_tpu")]
 assert not bad, bad
 print(len(names))
@@ -226,6 +256,15 @@ def test_k4_timing_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     out = subprocess.run([sys.executable, "tools/k4_timing.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_k3_timing_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, "tools/k3_timing.py"], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr

@@ -90,6 +90,52 @@ def test_flash_attention_kernel_ragged(cuda):
     assert float(err.mean()) <= _bf16_ulp(float(ref.abs().mean()))
 
 
+def _assert_attention_close(out, ref):
+    err = (out.float() - ref).abs()
+    assert float(err.max()) <= 2 * _bf16_ulp(float(ref.abs().max())), float(err.max())
+    assert float(err.mean()) <= _bf16_ulp(float(ref.abs().mean())), float(err.mean())
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_attention_kernel_at_every_tile_edge(cuda, b):
+    """bf16 at N on each side of the 64-row TMA box, the 128-key tile and the
+    192-row query tile: rows and keys past N arrive as zeros and are masked
+    or not stored; at 129 and 193 rows the tail block's idle warpgroups exit
+    at once. The grid launched is the helper's."""
+    g = torch.Generator(device=cuda).manual_seed(17)
+    for n in (1, 63, 64, 65, 127, 128, 129, 191, 193, 1100):
+        qkv = torch.randn(b, n, 3, 3, 64, device=cuda, generator=g).bfloat16()
+        out = kernels.flash_attention(qkv, 0.125)
+        assert kernels.FLASH_ATTENTION_LAUNCHED == dict(
+            grid=(kernels.flash_attention_blocks(n, b * 3), 1, 1), tile=(192, 128, 512))
+        _assert_attention_close(out, kernels.flash_attention_plain(qkv.float(), 0.125))
+
+
+def test_flash_attention_launches_the_helpers_grid(cuda):
+    """At the main path's tokens, K3 (2 views x 16 heads) and one K3s shard
+    (4 heads) launch the grid flash_attention_blocks gives."""
+    qkv = torch.randn(2, 5377, 3, 16, 64, device=cuda).bfloat16()
+    for h0, heads in ((0, 16), (4, 4)):
+        out = kernels.flash_attention_heads(qkv, 0.125, h0, heads)
+        assert kernels.FLASH_ATTENTION_LAUNCHED["grid"] == (kernels.flash_attention_blocks(5377, 2 * heads), 1, 1)
+        assert kernels.FLASH_ATTENTION_LAUNCHED["tile"][0] == kernels.FLASH_QUERY_ROWS
+        assert out.shape == (2, 5377, heads, 64) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("n", [1100, 193])
+def test_head_offsets_stitch_bit_for_bit(cuda, n):
+    """Head shards at h0 in {0, 2, 6} equal the single launch bit for bit: a
+    (b, h) pair's arithmetic does not depend on the head range or the grid."""
+    g = torch.Generator(device=cuda).manual_seed(18)
+    qkv = torch.randn(2, n, 3, 8, 64, device=cuda, generator=g).bfloat16()
+    whole = kernels.flash_attention(qkv, 0.125)
+    for h0 in (0, 2, 6):
+        part = kernels.flash_attention_heads(qkv, 0.125, h0, 2)
+        assert torch.equal(part, whole[:, :, h0:h0 + 2])
+        ref = kernels.flash_attention_plain(qkv[:, :, :, h0:h0 + 2].float(), 0.125)
+        _assert_attention_close(part, ref)
+
+
 def test_flash_attention_kernel_fp32(cuda):
     g = torch.Generator(device=cuda).manual_seed(3)
     qkv = torch.randn(2, 1100, 3, 3, 64, device=cuda, generator=g)
@@ -121,6 +167,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         kernels.flash_attention(qkv, 0.125)                      # fp16
     with pytest.raises(ValueError, match="want"):
         kernels.flash_attention(torch.zeros(1, 70, 3, 2, 32, device=cuda).bfloat16(), 0.1)
+    with pytest.raises(ValueError, match="positive scale"):       # folded into the exponent
+        kernels.flash_attention(qkv.bfloat16(), 0.0)
     x = torch.zeros(1, 64, 4, 16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.cost_volume_parts(x.transpose(2, 3).contiguous().transpose(2, 3), x,
@@ -229,10 +277,10 @@ def test_model_with_conv3x3_counts_its_launches(cuda, monkeypatch, mixed_precisi
     left, right = (torch.rand(1, 64, 96, 3, device=cuda, generator=g) * 255 for _ in range(2))
     kernels.reset_launches()
     with torch.no_grad():
-        got = model(left, right, iters=2)
+        got = model(left, right, iters=2, test_mode=True)
     assert kernels.LAUNCHES["conv3x3"] == 36 + 2 * 16
     with torch.no_grad():
-        want = ref(left, right, iters=2)
+        want = ref(left, right, iters=2, test_mode=True)
     diff = (got - want).abs()
     if mixed_precision:      # the whole-path tolerance of chip_smoke.py
         assert float(diff.mean()) <= 0.05 and float(torch.quantile(diff.flatten(), 0.99)) <= 0.5
@@ -342,7 +390,7 @@ def test_model_on_the_second_card_while_the_first_is_current(two_cards):
         model = FoundationStereo(cfg, device=dev, seed=0)
         kernels.reset_launches()
         with torch.cuda.device(c0), torch.no_grad():
-            outs.append(model(left.to(dev), right.to(dev), iters=2).cpu())
+            outs.append(model(left.to(dev), right.to(dev), iters=2, test_mode=True).cpu())
         torch.cuda.synchronize(dev)
         assert kernels.LAUNCHES["cost_volume_parts"] == 1
         assert kernels.LAUNCHES["disparity_lookup"] == 2
@@ -371,11 +419,11 @@ def test_model_under_a_one_card_mesh(cuda):
     left, right = (torch.rand(1, 64, 128, 3, device=cuda, generator=g) * 255 for _ in range(2))
     kernels.reset_launches()
     with mesh_context(_one_card_mesh(cuda)), torch.no_grad():
-        got = model(left, right, iters=2)
+        got = model(left, right, iters=2, test_mode=True)
     assert kernels.LAUNCHES == {"cost_volume_parts": 0, "cost_volume_parts_haloed": 4,
                                 "disparity_lookup": 0, "disparity_lookup_shard": 8,
                                 "flash_attention": 0, "flash_attention_heads": 0, "conv3x3": 0}
     model_ref = FoundationStereo(cfg.replace(pallas_conv3x3=False), device=cuda, seed=0)
     with torch.no_grad():
-        want = model_ref(left, right, iters=2)
+        want = model_ref(left, right, iters=2, test_mode=True)
     assert torch.equal(got, want)

@@ -73,7 +73,8 @@ def test_whole_forward_with_k4_routing_matches_jax(models):
     want = np.asarray(apply_fn(left, right, ITERS, None))
     kernels.reset_launches()
     with torch.no_grad():
-        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS).numpy()
+        got = model(torch.from_numpy(left), torch.from_numpy(right), iters=ITERS,
+                    test_mode=True).numpy()
     assert got.shape == want.shape == (1, 64, 96)
     assert float(np.abs(got - want).max()) <= 1e-2
     assert not any(kernels.LAUNCHES.values())                          # CPU: twins only

@@ -161,6 +161,17 @@ def test_cpu_wrappers_take_the_twins_and_count_nothing(rng):
     assert not any(kernels.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("pairs, blocks", [
+    (32, 928),     # K3: 2 views x 16 heads, 28 full query tiles and a 1-row one each
+    (8, 232),      # a K3s shard: 4 heads
+    (6, 174),      # a vitb K3s shard: 3 of 12 heads
+])
+def test_flash_attention_blocks_at_the_main_shapes(pairs, blocks):
+    """The bf16 attention kernel's grid at the main path's 5377 tokens."""
+    assert kernels.FLASH_QUERY_ROWS == 192
+    assert kernels.flash_attention_blocks(5377, pairs) == blocks
+
+
 def test_kernel_sources_and_build_paths():
     for src in kernels.SOURCES.values():
         text = (kernels.CSRC / src).read_text()
