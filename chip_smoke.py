@@ -14,13 +14,23 @@ Phases:
               error against the stated tolerance (and relative to max |twin|),
               kernel / plain / library times (CUDA events) and the least time
               the card could take (``bound_ms``, from the bytes and operations
-              of this run's inputs). For the attention rows (K3 here, K3s in
+              of this run's inputs). The lookups' log lines (K2 here, K5's
+              lookup in the mesh phase) add their sector floor: the unique
+              32-byte sectors the run's windows touch, plus the disparities
+              and the output, at the card's memory rate (K2's line also with
+              the geometry pyramid's channels innermost, a layout the port
+              does not use yet); their ``library_ms`` is
+              ``F.grid_sample`` once per level and volume. The lookup and
+              cost-volume rows carry the grid their C entry points report
+              (``kernels.LOOKUP_LAUNCHED``, ``kernels.COST_VOLUME_LAUNCHED``),
+              checked against ``kernels.lookup_grid`` and
+              ``kernels.cost_volume_grid``. For the attention rows (K3 here, K3s in
               the mesh phase) the operations are of two kinds, the products
               at the bf16 tensor-core peak and one ex2 per score on the SFUs
               (16 per SM per clock at the SM clock nvidia-smi reads; the log
               line gives this exp time), and the rows carry the grid they
               launched (``kernels.FLASH_ATTENTION_LAUNCHED``; the log adds
-              its waves). The 3x3 conv (K4) is
+              its waves); the fp32 variant is timed beside SDPA in fp32. The 3x3 conv (K4) is
               held at seven shapes of the main path (the largest refinement
               conv, a ragged
               F = 127, the 1/16 level, the hourglass's (1, 3, 3) conv on the
@@ -64,7 +74,8 @@ Phases:
 ``--profile`` adds a per-module and per-op time breakdown of one 736x1280 pair
 for the served configuration, for the one with the 3x3 conv kernel (with
 K4's launches, device time and bound per conv shape) and for the served
-configuration under the mesh.
+configuration under the mesh, each with the device time and launches of
+K1 / K5's build, K2 / K5's lookup and K3 / K3s under the profiler.
 
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
@@ -236,28 +247,59 @@ def attention_errors(out, ref) -> tuple[float, float, float, float, float, float
 # ---------------------------------------------------------------------------
 
 
+def cost_volume_inputs(dev, gen):
+    """K1's inputs at the main path's shapes: bf16 left / right features
+    (B, 224, H/4, W/4), the right projection (B, 12, H/4, W/4), and (D,
+    G, P)."""
+    import torch
+
+    B, C, H, W, G, P, D = 1, 224, MAIN["height"] // 4, MAIN["width"] // 4, 8, 12, MAIN["max_disp"] // 4
+    left, right = (torch.randn(B, C, H, W, device=dev, generator=gen).bfloat16() for _ in range(2))
+    rp = torch.randn(B, P, H, W, device=dev, generator=gen).bfloat16()
+    return left, right, rp, D, G, P
+
+
+def cost_volume_errors(gk, rk, gp, rpp) -> tuple[float, bool]:
+    """(max abs err, within tolerance) of the kernel's parts against the
+    twin's: gwc within 1 bf16 ulp of the larger value plus 2e-6 for the fp32
+    sums over cg = 28 products taken in another order (it matters only where
+    they cancel); rps exact."""
+    import torch
+
+    gk32, gp32 = gk.float(), gp.float()
+    err = (gk32 - gp32).abs()
+    ok = bool((err <= bf16_ulp(torch.maximum(gk32.abs(), gp32.abs())) + 2e-6).all())
+    ok = ok and bool(torch.equal(rk, rpp))
+    return max(float(err.max()), float((rk.float() - rpp.float()).abs().max())), ok
+
+
+def lookup_errors(out, ref) -> tuple[float, bool]:
+    """(max abs err, within tolerance) of the lookup against its twin: both
+    accumulate in fp32 and round once to bf16, so 1 bf16 ulp of the larger
+    value, plus 1e-6 for the fp32 sums taken in another order."""
+    import torch
+
+    o32, r32 = out.float(), ref.float()
+    diff = (o32 - r32).abs()
+    return float(diff.max()), bool((diff <= bf16_ulp(torch.maximum(o32.abs(), r32.abs())) + 1e-6).all())
+
+
 def check_cost_volume(dev, gen) -> dict:
     import torch
 
     from foundationstereo_torch.ops import cost_volume, kernels
 
-    B, C, H, W, G, P, D = 1, 224, MAIN["height"] // 4, MAIN["width"] // 4, 8, 12, MAIN["max_disp"] // 4
-    left, right = (torch.randn(B, C, H, W, device=dev, generator=gen).bfloat16() for _ in range(2))
-    rp = torch.randn(B, P, H, W, device=dev, generator=gen).bfloat16()
+    left, right, rp, D, G, P = cost_volume_inputs(dev, gen)
+    B, C, H, W = left.shape
     gk, rk = kernels.cost_volume_parts(left, right, rp, D, G, out_dtype=torch.bfloat16)
+    grid = cost_volume_launched(left, D, G, P)
     gp, rpp = cost_volume.cost_volume_parts(left, right, rp, D, G, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    gk32, gp32 = gk.float(), gp.float()
-    err = (gk32 - gp32).abs()
-    # 1 bf16 ulp of the larger value, plus 2e-6 for the fp32 sums over cg = 28
-    # products taken in another order (it matters only where they cancel).
-    ulp_ok = bool((err <= bf16_ulp(torch.maximum(gk32.abs(), gp32.abs())) + 2e-6).all())
-    rps_exact = bool(torch.equal(rk, rpp))
-    max_err = max(float(err.max()), float((rk.float() - rpp.float()).abs().max()))
-    rel = max_err / float(gp32.abs().max())
-    log(f"[kernels] cost_volume_parts: gwc max abs err {float(err.max()):.3g}, rel {rel:.3g} "
-        f"(tolerance: 1 bf16 ulp + 2e-6 per element -> {ulp_ok}), rps exact {rps_exact}")
-    check(ulp_ok and rps_exact, "cost_volume_parts disagrees with its twin")
+    max_err, ok = cost_volume_errors(gk, rk, gp, rpp)
+    rel = max_err / float(gp.float().abs().max())
+    log(f"[kernels] cost_volume_parts: max abs err {max_err:.3g}, rel {rel:.3g} (tolerance: gwc "
+        f"1 bf16 ulp + 2e-6 per element, rps exact -> {ok})")
+    check(ok, "cost_volume_parts disagrees with its twin")
 
     ms = cuda_ms(lambda: kernels.cost_volume_parts(left, right, rp, D, G, out_dtype=torch.bfloat16), 20)
     plain_ms = cuda_ms(lambda: cost_volume.cost_volume_parts(left, right, rp, D, G,
@@ -265,12 +307,29 @@ def check_cost_volume(dev, gen) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in (left, right, rp, gk, rk))
     flops = 2.0 * C * B * H * sum(max(W - d, 0) for d in range(D))
     b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+    log(f"[kernels] cost_volume_parts: {ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}), "
+        f"{nbytes / ms / 1e9:.4g} TB/s; grid {grid['blocks']} blocks ({grid['tile']})")
     return dict(name="cost_volume_parts", route="cuda",
                 source="foundationstereo_torch/csrc/cost_volume.cu",
                 replaces="foundationstereo_tpu/ops/pallas_kernels.py:598",
                 max_abs_err=max_err, max_rel_err=rel,
                 tolerance="1 bf16 ulp + 2e-6 per element (rps exact)",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                grid=grid)
+
+
+def cost_volume_launched(left, d, groups, p) -> dict:
+    """The last cost-volume launch's blocks and block tile, as its C entry
+    point reported them, checked against ``kernels.cost_volume_grid``."""
+    from foundationstereo_torch.ops import kernels
+
+    (gx, gy, gz), (threads, cols, disps) = (kernels.COST_VOLUME_LAUNCHED[k] for k in ("grid", "tile"))
+    b, _, h, w = left.shape
+    want = kernels.cost_volume_grid(b, h, w, d, groups, p)
+    check(((gx, gy, gz), threads) == want, f"cost volume launched {((gx, gy, gz), threads)}, "
+                                           f"helper {want}")
+    return dict(blocks=gx * gy * gz, grid=[gx, gy, gz],
+                tile=f"{threads} threads, {cols} columns x {disps} disparities, 8x8 per thread")
 
 
 def _pyramids(dev, gen, levels, dtype):
@@ -291,57 +350,123 @@ def _pyramids(dev, gen, levels, dtype):
 
 def check_lookup(dev, gen) -> dict:
     import torch
-    import torch.nn.functional as F
 
     from foundationstereo_torch.ops import kernels, sampler
 
     r, levels = 4, 4
     geo, corr, disp = _pyramids(dev, gen, levels, torch.bfloat16)
     out = kernels.disparity_lookup(geo, corr, disp, r, out_dtype=torch.bfloat16)
+    grid = lookup_launched(geo, disp)
     ref = sampler.disparity_lookup(geo, corr, disp, r, out_dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    o32, r32 = out.float(), ref.float()
-    diff = (o32 - r32).abs()
-    err = float(diff.max())
-    rel = err / float(r32.abs().max())
-    # Both accumulate in fp32 and round once to bf16: 1 bf16 ulp of the larger
-    # value, plus 1e-6 for the fp32 sums taken in another order.
-    ulp_ok = bool((diff <= bf16_ulp(torch.maximum(o32.abs(), r32.abs())) + 1e-6).all())
-    del o32, r32, diff
+    err, ok = lookup_errors(out, ref)
+    rel = err / float(ref.float().abs().max())
     log(f"[kernels] disparity_lookup: out {tuple(out.shape)}, max abs err {err:.3g}, rel {rel:.3g} "
-        f"(tolerance: 1 bf16 ulp + 1e-6 per element -> {ulp_ok}; inputs in [-1, 1])")
-    check(ulp_ok, "disparity_lookup disagrees with its twin")
+        f"(tolerance: 1 bf16 ulp + 1e-6 per element -> {ok}; inputs in [-1, 1])")
+    check(ok, "disparity_lookup disagrees with its twin")
 
     ms = cuda_ms(lambda: kernels.disparity_lookup(geo, corr, disp, r, out_dtype=torch.bfloat16), 20)
     plain_ms = cuda_ms(lambda: sampler.disparity_lookup(geo, corr, disp, r,
                                                         out_dtype=torch.bfloat16), 3)
 
-    # One library call per level and volume: grid_sample over (pixel, 1, L) rows.
+    library_ms = cuda_ms(lookup_library(geo, corr, disp, r), 5)
+    b_ms, b_by = lookup_bound(geo, corr, disp, r, out)
+    sector_ms = lookup_sector_bound(geo, corr, disp, r, out)
+    cl_ms = lookup_sector_bound(geo, corr, disp, r, out, channels_last=True)
+    log(f"[kernels] disparity_lookup: {ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}), sector floor "
+        f"{sector_ms:.4g} ms ({cl_ms:.4g} ms were the geometry channels innermost), "
+        f"F.grid_sample x {2 * levels} {library_ms:.4g} ms; grid "
+        f"{grid['blocks']} blocks ({grid['tile']})")
+    return dict(name="disparity_lookup", route="cuda",
+                source="foundationstereo_torch/csrc/lookup.cu",
+                replaces="foundationstereo_tpu/ops/pallas_kernels.py:112",
+                max_abs_err=err, max_rel_err=rel, tolerance="1 bf16 ulp + 1e-6 per element",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms, grid=grid)
+
+
+def lookup_library(geo, corr, disp, r, x_offset=0):
+    """One library call per level and volume computing the lookup:
+    ``F.grid_sample`` over (pixel, 1, L) rows at the same positions (the
+    correlation's with the global x offset). Returns the callable."""
+    import torch
+    import torch.nn.functional as F
+
     B, H, W, C = geo[0].shape[:4]
     n = B * H * W
-    k = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
-    xs = torch.arange(W, device=dev, dtype=torch.float32)
+    k = torch.arange(-r, r + 1, device=disp.device, dtype=torch.float32)
+    xs = torch.arange(W, device=disp.device, dtype=torch.float32) + x_offset
     grids = []
     for i, (g, c) in enumerate(zip(geo, corr)):
         s = 2.0 ** -i
         for x, L in (((disp * s)[..., None] + k, g.shape[-1]),
                      (((xs - disp) * s)[..., None] + k, c.shape[-1])):
             gx = (2.0 * x / (L - 1) - 1.0).reshape(n, 1, 2 * r + 1, 1)
-            grids.append(torch.cat([gx, torch.zeros_like(gx)], dim=-1).to(torch.bfloat16))
+            grids.append(torch.cat([gx, torch.zeros_like(gx)], dim=-1).to(g.dtype))
 
     def library():
         for i, (g, c) in enumerate(zip(geo, corr)):
             F.grid_sample(g.view(n, C, 1, g.shape[-1]), grids[2 * i], align_corners=True)
             F.grid_sample(c.view(n, 1, 1, c.shape[-1]), grids[2 * i + 1], align_corners=True)
 
-    library_ms = cuda_ms(library, 5)
+    return library
 
-    b_ms, b_by = lookup_bound(geo, corr, disp, r, out)
-    return dict(name="disparity_lookup", route="cuda",
-                source="foundationstereo_torch/csrc/lookup.cu",
-                replaces="foundationstereo_tpu/ops/pallas_kernels.py:112",
-                max_abs_err=err, max_rel_err=rel, tolerance="1 bf16 ulp + 1e-6 per element",
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+
+def lookup_launched(geo, disp) -> dict:
+    """The last lookup launch's blocks and block tile, as its C entry point
+    reported them, checked against ``kernels.lookup_grid``."""
+    from foundationstereo_torch.ops import kernels
+
+    (gx, gy, gz), (threads, pixels, radius) = (kernels.LOOKUP_LAUNCHED[k] for k in ("grid", "tile"))
+    want = kernels.lookup_grid(*disp.shape, len(geo), geo[0].shape[3])
+    check((gx, gy, gz) == want, f"lookup launched grid {(gx, gy, gz)}, helper {want}")
+    return dict(blocks=gx * gy * gz, grid=[gx, gy, gz],
+                tile=f"{threads} threads x {pixels} pixels, radius {radius}")
+
+
+def lookup_sectors(geo, corr, disp, r, x_offset=0, channels_last=False) -> int:
+    """The unique 32-byte sectors of the pyramids that this run's windows
+    touch: for each level, volume, pixel (and geometry channel), the
+    in-range part of the 2r+2 values from floor(position) - r, as bytes at
+    the tensors' own addresses. With ``channels_last`` the geometry levels
+    are counted as if laid out (B, H, W, D_l, C) in the same allocation: a
+    pixel's C windows are then one run of (2r+2) C values."""
+    import torch
+
+    C = geo[0].shape[3]
+    xs = torch.arange(disp.shape[-1], device=disp.device, dtype=torch.float32) + x_offset
+    total = 0
+    for i, (g, c) in enumerate(zip(geo, corr)):
+        s = 2.0 ** -i
+        for vol, x, ch in ((g, disp * s, C), (c, (xs - disp) * s, 1)):
+            L, es = vol.shape[-1], vol.element_size()
+            i0 = torch.floor(x.clamp(-(L + 2 * r + 2), L + 2 * r + 2)).long().reshape(-1)
+            lo, hi = (i0 - r).clamp(0, L), (i0 + r + 2).clamp(0, L)
+            # ch runs of span-value elements per pixel, each row L * span long
+            ch, span = (1, ch) if channels_last and vol is g else (ch, 1)
+            rows = (torch.arange(i0.numel(), device=x.device)[:, None] * ch
+                    + torch.arange(ch, device=x.device)[None, :])         # (pixels, ch)
+            keep = (hi > lo)[:, None].expand_as(rows)
+            start = vol.data_ptr() + (rows * L + lo[:, None]) * span * es
+            end = vol.data_ptr() + (rows * L + hi[:, None]) * span * es - 1
+            s0, s1 = (start[keep] >> 5), (end[keep] >> 5)
+            base = vol.data_ptr() >> 5
+            marks = torch.zeros(((vol.data_ptr() + vol.numel() * es - 1) >> 5) - base + 1,
+                                dtype=torch.bool, device=x.device)
+            for k in range(int((s1 - s0).max()) + 1 if s0.numel() else 0):
+                sec = s0 + k
+                marks[(sec[sec <= s1] - base)] = True
+            total += int(marks.sum())
+    return total
+
+
+def lookup_sector_bound(geo, corr, disp, r, out, x_offset=0, channels_last=False) -> float:
+    """The lookup's floor in ms at the card's memory rate: the unique
+    32-byte sectors its windows touch (``lookup_sectors``), plus the
+    disparities and the output."""
+    nbytes = (32 * lookup_sectors(geo, corr, disp, r, x_offset, channels_last)
+              + disp.numel() * 4 + out.numel() * out.element_size())
+    return nbytes / HBM_BPS * 1e3
 
 
 def lookup_bound(geo, corr, disp, r, out, x_offset=0) -> tuple[float, str]:
@@ -393,7 +518,9 @@ def check_attention(dev, gen) -> dict:
     check(err32 <= 1e-5, "fp32 flash_attention disagrees with the fp32 dense reference")
     fp32_ms = cuda_ms(lambda: kernels.flash_attention(qkv32, scale), 3)
     fp32_bound_ms, _ = bound(qkv32.numel() * 4 * 4 / 3, 4.0 * B * Hh * N * N * hd, FP32_FLOPS)
-    del qkv32
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in qkv32.unbind(2))
+    fp32_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 3)
+    del qkv32, qs, ks, vs
 
     ms = cuda_ms(lambda: kernels.flash_attention(qkv, scale), 10)
     plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(qkv, scale), 3)
@@ -404,7 +531,7 @@ def check_attention(dev, gen) -> dict:
     clock = sm_clock_mhz()
     b_ms, b_by, e_ms = attention_bound(nbytes, flops, B * Hh * N * N, sms, clock)
     log(f"[kernels] flash_attention fp32: {fp32_ms:.4g} ms (bound {fp32_bound_ms:.4g} ms at "
-        f"the fp32 peak)")
+        f"the fp32 peak); SDPA in fp32 {fp32_library_ms:.4g} ms")
     log(f"[kernels] flash_attention bf16: {ms:.4g} ms, {flops / ms / 1e9:.4g} TF/s; bound "
         f"{b_ms:.4g} ms ({b_by}), exp {e_ms:.4g} ms (one ex2 per score, 16 per SM per clock at "
         f"{clock:.0f} MHz); SDPA {library_ms:.4g} ms; grid {grid['blocks']} blocks "
@@ -418,7 +545,7 @@ def check_attention(dev, gen) -> dict:
                           "vs fp32 dense",
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
                 grid=grid, fp32_max_abs_err=err32, fp32_ms=fp32_ms,
-                fp32_bound_ms=fp32_bound_ms)
+                fp32_bound_ms=fp32_bound_ms, fp32_library_ms=fp32_library_ms)
 
 
 def _conv_case(dev, gen, c, f, spatial, dtype):
@@ -698,23 +825,18 @@ def check_cost_volume_sharded(dev, gen, mesh) -> dict:
 
     from foundationstereo_torch.ops import cost_volume, kernels, sharded
 
-    B, C, H, W, G, P, D = 1, 224, MAIN["height"] // 4, MAIN["width"] // 4, 8, 12, MAIN["max_disp"] // 4
-    left, right = (torch.randn(B, C, H, W, device=dev, generator=gen).bfloat16() for _ in range(2))
-    rp = torch.randn(B, P, H, W, device=dev, generator=gen).bfloat16()
+    left, right, rp, D, G, P = cost_volume_inputs(dev, gen)
+    B, C, H, W = left.shape
     wl, bf = W // MESH_SHARDS, torch.bfloat16
     shards = []
     for j in range(MESH_SHARDS):
         x0 = j * wl
         lj = left[..., x0:x0 + wl].contiguous()
         gk, rk = kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
+        grid = cost_volume_launched(lj, D, G, P)
         gp, rpp = cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
         torch.cuda.synchronize()
-        gk32, gp32 = gk.float(), gp.float()
-        err = (gk32 - gp32).abs()
-        ok = bool((err <= bf16_ulp(torch.maximum(gk32.abs(), gp32.abs())) + 2e-6).all())
-        ok = ok and bool(torch.equal(rk, rpp))
-        max_err = max(float(err.max()), float((rk.float() - rpp.float()).abs().max()))
-        del gk32, gp32, err
+        max_err, ok = cost_volume_errors(gk, rk, gp, rpp)
         ms = cuda_ms(lambda: kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf), 20)
         plain_ms = cuda_ms(lambda: cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0,
                                                                         out_dtype=bf), 3)
@@ -724,10 +846,11 @@ def check_cost_volume_sharded(dev, gen, mesh) -> dict:
         b_ms, b_by = bound(nbytes, 2.0 * C * B * H * pairs, FP32_FLOPS)
         log(f"[mesh] cost_volume_parts_haloed shard {j}: x_offset {x0}, {x0 - ws} halo columns, "
             f"max abs err {max_err:.3g} (tolerance: 1 bf16 ulp + 2e-6 per element, rps exact -> "
-            f"{ok}); {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+            f"{ok}); {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}); grid "
+            f"{grid['blocks']} blocks ({grid['tile']})")
         check(ok, f"cost_volume_parts_haloed shard {j} disagrees with its twin")
         shards.append(dict(shard=j, x_offset=x0, halo_columns=x0 - ws, max_abs_err=max_err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, grid=grid))
         del gk, rk, gp, rpp
     got = sharded.cost_volume_parts_sharded(left, right, rp, D, G, mesh, out_dtype=bf)
     want = kernels.cost_volume_parts(left, right, rp, D, G, out_dtype=bf)
@@ -760,23 +883,23 @@ def check_lookup_sharded(dev, gen, mesh) -> dict:
         cj = [c[:, :, x0:x0 + wl].contiguous() for c in corr]
         dj = disp[..., x0:x0 + wl].contiguous()
         out = kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf)
+        grid = lookup_launched(gj, dj)
         ref = sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf, x_offset=x0)
         torch.cuda.synchronize()
-        o32, r32 = out.float(), ref.float()
-        diff = (o32 - r32).abs()
-        err = float(diff.max())
-        ok = bool((diff <= bf16_ulp(torch.maximum(o32.abs(), r32.abs())) + 1e-6).all())
-        del o32, r32, diff
+        err, ok = lookup_errors(out, ref)
         ms = cuda_ms(lambda: kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf), 20)
         plain_ms = cuda_ms(lambda: sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf,
                                                             x_offset=x0), 3)
+        library_ms = cuda_ms(lookup_library(gj, cj, dj, r, x0), 5)
         b_ms, b_by = lookup_bound(gj, cj, dj, r, out, x0)
+        sector_ms = lookup_sector_bound(gj, cj, dj, r, out, x0)
         log(f"[mesh] disparity_lookup_shard shard {j}: x_offset {x0}, out {tuple(out.shape)}, max abs "
             f"err {err:.3g} (tolerance: 1 bf16 ulp + 1e-6 per element -> {ok}); {ms:.4g} ms, plain "
-            f"{plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by})")
+            f"{plain_ms:.4g} ms, F.grid_sample x 8 {library_ms:.4g} ms, bound {b_ms:.4g} ms "
+            f"({b_by}), sector floor {sector_ms:.4g} ms; grid {grid['blocks']} blocks")
         check(ok, f"disparity_lookup_shard shard {j} disagrees with its twin")
         shards.append(dict(shard=j, x_offset=x0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=b_ms, bound_by=b_by))
+                           library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, grid=grid))
         del gj, cj, out, ref
     pyr = sharded.shard_pyramids(geo, corr, mesh)
     got = sharded.disparity_lookup_sharded(pyr, disp, r, bf)
@@ -789,7 +912,8 @@ def check_lookup_sharded(dev, gen, mesh) -> dict:
     check(equal, "the stitched sharded lookup differs from K2")
     return _shard_row("disparity_lookup_shard", "foundationstereo_torch/csrc/lookup.cu",
                       "foundationstereo_tpu/ops/pallas_kernels.py:321", shards, equal,
-                      tolerance="1 bf16 ulp + 1e-6 per element", library_ms=None,
+                      tolerance="1 bf16 ulp + 1e-6 per element",
+                      library_ms=sum(sh["library_ms"] for sh in shards) / len(shards),
                       sharded_call_ms=sharded_ms, pyramid_cut_ms=cut_ms)
 
 
@@ -1085,6 +1209,12 @@ def profile_pair(model, pair) -> None:
             f"{sum(e.count for e in k4)} launches ("
             + ", ".join(f"{K4_KERNEL.search(e.key).group(0)}: "
                         f"{e.self_device_time_total / 1e3:.2f} ms / {e.count}" for e in k4) + ")")
+    for label, pattern in (("K1 / K5 build", "cost_volume_parts_kernel"),
+                           ("K2 / K5 lookup", "lookup_kernel"), ("K3 / K3s", "flash_fwd")):
+        ev = [e for e in kern if pattern in e.key]
+        log(f"[profile] {label} kernels under the profiler: "
+            f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms of device time over "
+            f"{sum(e.count for e in ev)} launches")
     log(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 

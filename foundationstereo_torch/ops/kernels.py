@@ -29,6 +29,11 @@ On a CPU tensor a wrapper runs its kernel's plain PyTorch twin; on a CUDA
 tensor it launches the kernel on that tensor's device, under its device
 guard and on its current stream (and adds one to ``LAUNCHES[name]``), or
 raises.
+
+Each C entry point reports the grid it launched (``COST_VOLUME_LAUNCHED``,
+``LOOKUP_LAUNCHED``, ``FLASH_ATTENTION_LAUNCHED``, ``CONV3X3_LAUNCHED``);
+``cost_volume_grid``, ``lookup_grid``, ``flash_attention_blocks`` and
+``conv3x3_blocks`` give the same from the shapes, for the checks.
 """
 
 from __future__ import annotations
@@ -65,8 +70,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry point fs_<name> -> (the source whose library holds it, its argument types)
 ENTRY_POINTS = {
-    "cost_volume_parts_haloed": ("cost_volume_parts", [_P] * 5 + [_I] * 11 + [_P]),
-    "disparity_lookup": ("disparity_lookup", [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_P]),
+    "cost_volume_parts_haloed": ("cost_volume_parts", [_P] * 5 + [_I] * 12 + [_P, _P]),
+    "disparity_lookup": ("disparity_lookup", [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_P, _P]),
     "flash_attention": ("flash_attention", [_P, _P] + [_I] * 5 + [ctypes.c_float, _I, _P, _P]),
     "conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 9 + [_P, _P]),
 }
@@ -77,6 +82,12 @@ LAUNCHES = {name: 0 for name in ("cost_volume_parts", "cost_volume_parts_haloed"
                                  "disparity_lookup", "disparity_lookup_shard",
                                  "flash_attention", "flash_attention_heads", "conv3x3")}
 
+# The last cost-volume launch (K1 or K5's build) as its C entry point made
+# it: the grid (x, y, z) and a block's tile (threads, columns, disparities).
+COST_VOLUME_LAUNCHED: dict = {}
+# The last lookup launch (K2 or K5's lookup) as its C entry point made it:
+# the grid (x, y, z) and a block's tile (threads, pixels per thread, radius).
+LOOKUP_LAUNCHED: dict = {}
 # The last conv3x3 launch as its C entry point made it: the grid (x, y, z)
 # and a block's tile (output rows, columns, channels).
 CONV3X3_LAUNCHED: dict = {}
@@ -210,6 +221,37 @@ def cost_volume_parts_haloed(left: torch.Tensor, right: torch.Tensor, right_proj
     return _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset)
 
 
+# The cost-volume kernel's thread tile (output columns x disparities), the
+# widest block tile it aims at (columns) and its most threads per block.
+CV_TILE_W, CV_TILE_D, CV_MAX_COLUMNS, CV_MAX_THREADS = 8, 8, 80, 160
+
+
+def cost_volume_tile(w: int, d: int) -> int:
+    """nwt, the cost-volume kernel's block tile in 8-column thread tiles:
+    W cut into the fewest tiles of at most CV_MAX_COLUMNS columns, each
+    rounded up to a multiple of 8 (4 x 80 at W = 320, 1 x 80 at a shard's
+    80; 80 ran faster than 40 and 160 at W = 320 on the H100), narrowed
+    while nwt x ceil(D / 8) thread tiles exceed a block."""
+    ndt = -(-d // CV_TILE_D)
+    tiles = -(-w // CV_MAX_COLUMNS)
+    while True:
+        nwt = -(-(-(-w // tiles)) // CV_TILE_W)
+        if nwt * ndt <= CV_MAX_THREADS or nwt == 1:
+            return nwt
+        tiles += 1
+
+
+def cost_volume_grid(b: int, h: int, w: int, d: int, groups: int, p: int) -> tuple:
+    """The cost-volume kernel's launch: ((w tiles, G + P, B * H), threads).
+    Block (x, y, z) serves row z's columns [x * 8 nwt, (x + 1) * 8 nwt) of
+    group y (y < G) or projection channel y - G; in a group block, thread t
+    < nwt * ceil(D / 8) owns the 8 columns 8 (t % nwt) + [0, 8) of the tile
+    and the 8 disparities 8 (t // nwt) + [0, 8), those inside W and D."""
+    nwt = cost_volume_tile(w, d)
+    items = nwt * -(-d // CV_TILE_D)
+    return (-(-w // (CV_TILE_W * nwt)), groups + p, b * h), -(-items // 32) * 32
+
+
 def _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset):
     b, c, h, w = left.shape
     wr = right.shape[-1]
@@ -223,17 +265,23 @@ def _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offs
              "inputs must share one dtype, float32 or bfloat16")
     _require(out_dtype in _FLOATS, f"out_dtype {out_dtype}")
     _require(c % num_groups == 0 and c // num_groups <= 32, f"C={c}, groups={num_groups}")
-    window = min(x0 + w, maxdisp - 1 + w)        # the right columns a block keeps
-    _require(c // num_groups * window * 4 <= 232448, f"row of width {window} exceeds shared memory")
+    _require(maxdisp >= 1 and b * h <= 65535, f"maxdisp {maxdisp}, {b * h} rows")
+    nwt = cost_volume_tile(w, maxdisp)
+    ndt = -(-maxdisp // CV_TILE_D)
+    _require(nwt * ndt <= CV_MAX_THREADS, f"maxdisp {maxdisp}: too many disparity tiles")
+    smem = c // num_groups * (CV_TILE_D * ndt + 2 * CV_TILE_W * nwt) * 4
+    _require(smem <= 232448, f"a block's rows ({smem} bytes) exceed shared memory")
     _require(all(t.is_contiguous() for t in (left, right, right_proj)),
              "inputs must be contiguous")
     gwc = torch.empty((b, num_groups, maxdisp, h, w), device=left.device, dtype=out_dtype)
     rps = torch.empty((b, p, maxdisp, h, w), device=left.device, dtype=out_dtype)
     name = "cost_volume_parts" if x_offset is None else "cost_volume_parts_haloed"
+    launched = (ctypes.c_int * 6)()
     _launch(name, "cost_volume_parts_haloed", left.device,
             left.data_ptr(), right.data_ptr(), right_proj.data_ptr(), gwc.data_ptr(),
-            rps.data_ptr(), b, c, h, w, wr, x0, num_groups, p, maxdisp,
-            int(left.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
+            rps.data_ptr(), b, c, h, w, wr, x0, num_groups, p, maxdisp, nwt,
+            int(left.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), launched)
+    COST_VOLUME_LAUNCHED.update(grid=tuple(launched[:3]), tile=tuple(launched[3:]))
     return gwc, rps
 
 
@@ -266,6 +314,22 @@ def disparity_lookup_shard(geo_pyramid: list[torch.Tensor], corr_pyramid: list[t
                    x_offset)
 
 
+# The lookup kernel's block: threads, each serving this many adjacent
+# pixels (flattened over H x W) of one (level, channel) item. Radius 4 has
+# an instantiation of its own; any other radius runs the generic one.
+LOOKUP_THREADS, LOOKUP_PIXELS = 128, 2
+
+
+def lookup_grid(b: int, h: int, w: int, levels: int, c: int) -> tuple[int, int, int]:
+    """The lookup kernel's grid: (levels x (C + 1) items, pixel pairs /
+    threads, B). Thread t of block (item, y, b) serves the pixels q0 and
+    q0 + 1 (those below H * W) of image b, q0 = (y * LOOKUP_THREADS + t) *
+    LOOKUP_PIXELS, flattened over (H, W), and stores the 2r + 1 taps of its
+    item at each."""
+    pairs = -(-(h * w) // LOOKUP_PIXELS)
+    return levels * (c + 1), -(-pairs // LOOKUP_THREADS), b
+
+
 def _lookup(name, geo_pyramid, corr_pyramid, disp, radius, out_dtype, x_offset):
     b, h, w = disp.shape
     n = len(geo_pyramid)
@@ -273,6 +337,7 @@ def _lookup(name, geo_pyramid, corr_pyramid, disp, radius, out_dtype, x_offset):
     in_dtype = geo_pyramid[0].dtype
     _require(1 <= n <= 8 and len(corr_pyramid) == n,
              f"{n} geometry / {len(corr_pyramid)} corr levels")
+    _require(radius >= 0, f"radius {radius}")
     _require(disp.dtype == torch.float32 and disp.is_contiguous(),
              "disp must be contiguous float32")
     _require(in_dtype in _FLOATS and out_dtype in _FLOATS, f"dtypes {in_dtype} -> {out_dtype}")
@@ -286,11 +351,13 @@ def _lookup(name, geo_pyramid, corr_pyramid, disp, radius, out_dtype, x_offset):
     out = torch.empty((b, f, h, w), device=disp.device, dtype=out_dtype)
     ptrs = (ctypes.c_void_p * n)
     lens = (ctypes.c_int * n)
+    launched = (ctypes.c_int * 6)()
     _launch(name, "disparity_lookup", disp.device,
             ptrs(*[g.data_ptr() for g in geo_pyramid]), ptrs(*[cr.data_ptr() for cr in corr_pyramid]),
             lens(*[g.shape[4] for g in geo_pyramid]), lens(*[cr.shape[3] for cr in corr_pyramid]),
             n, disp.data_ptr(), out.data_ptr(), b, h, w, c, radius, int(x_offset),
-            int(in_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16))
+            int(in_dtype == torch.bfloat16), int(out_dtype == torch.bfloat16), launched)
+    LOOKUP_LAUNCHED.update(grid=tuple(launched[:3]), tile=tuple(launched[3:]))
     return out
 
 

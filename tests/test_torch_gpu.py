@@ -76,6 +76,103 @@ def test_lookup_kernel(cuda, dtype):
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=atol)
 
 
+def _assert_within_one_ulp(out, ref, extra):
+    """Per element: 1 bf16 ulp of the larger magnitude + ``extra`` (bf16
+    outputs), or 2^-22 of it + ``extra`` (fp32 outputs)."""
+    o, r = out.float(), ref.float()
+    big = torch.maximum(o.abs(), r.abs())
+    if out.dtype == torch.bfloat16:
+        tol = torch.exp2(torch.floor(torch.log2(big.clamp_min(2.0 ** -126))) - 7)
+    else:
+        tol = big * 2.0 ** -22
+    assert bool(((o - r).abs() <= tol + extra).all()), float((o - r).abs().max())
+
+
+_IN_OUT = [(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+           (torch.bfloat16, torch.float32), (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("din,dout", _IN_OUT)
+@pytest.mark.parametrize("radius", [1, 4, 6, 9])
+def test_lookup_kernel_levels_radii_and_types(cuda, din, dout, radius):
+    """Level lengths 104/52/26/13 and odd ones (25/12/6/3, correlation rows
+    of 41/20/10/5), an odd and an even number of pixels per image (the
+    scalar and the paired stores), integer, fractional and far-out
+    disparities; radius 4's own instantiation and the generic one (1 chunk
+    of taps, 2, and 3 at r = 9); the grid launched is the helper's."""
+    g = torch.Generator(device=cuda).manual_seed(20 + radius)
+    for d, (h, w) in ((104, (4, 40)), (25, (3, 41))):
+        geo = [x.to(din).contiguous()
+               for x in sampler.pool_last_axis(_uniform(g, 2, h, w, 5, d, device=cuda), 3)]
+        corr = [x.to(din).contiguous()
+                for x in sampler.pool_last_axis(_uniform(g, 2, h, w, w, device=cuda), 3)]
+        disp = torch.rand(2, h, w, device=cuda, generator=g) * 3 * d - d
+        disp[0, 0, :8] = torch.arange(8, device=cuda, dtype=torch.float32)
+        disp[0, 1, :6] = torch.tensor([-100.0, 1e4, -0.5, d - 0.5, d - 1, -1.0], device=cuda)
+        out = kernels.disparity_lookup(geo, corr, disp, radius, out_dtype=dout)
+        assert kernels.LOOKUP_LAUNCHED == dict(grid=kernels.lookup_grid(2, h, w, 4, 5),
+                                               tile=(128, 2, radius))
+        ref = sampler.disparity_lookup(geo, corr, disp, radius, out_dtype=dout)
+        _assert_within_one_ulp(out, ref, 1e-6)
+
+
+def test_lookup_shards_of_odd_width_stitch_bit_for_bit(cuda):
+    """4 shards of 11 columns (33 pixels per image: scalar stores) against
+    the unsharded kernel (132 pixels: paired stores), radius 6."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    geo = [x.bfloat16().contiguous()
+           for x in sampler.pool_last_axis(_uniform(g, 1, 3, 44, 7, 52, device=cuda), 3)]
+    corr = [x.bfloat16().contiguous()
+            for x in sampler.pool_last_axis(_uniform(g, 1, 3, 44, 44, device=cuda), 3)]
+    disp = torch.rand(1, 3, 44, device=cuda, generator=g) * 80 - 10
+    got = sharded.disparity_lookup_sharded(
+        sharded.shard_pyramids(geo, corr, _one_card_mesh(cuda)), disp, 6, torch.bfloat16)
+    assert torch.equal(got, kernels.disparity_lookup(geo, corr, disp, 6, torch.bfloat16))
+
+
+@pytest.mark.parametrize("din,dout", _IN_OUT)
+def test_cost_volume_kernel_at_every_tile_edge(cuda, din, dout):
+    """Widths 1, 7, 9, 41, 87 (ragged 8-column runs and tiles: scalar
+    stores), 80 and 320 (whole tiles: 16-byte stores) by 1, 7, 13 and 104
+    disparities, with 28 channels per group (the main path's template) and
+    8 (the generic one); the grid launched is the helper's."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    for c, groups in ((56, 2), (64, 8)):
+        for w in (1, 7, 9, 41, 87, 80, 320):
+            l, r = (_uniform(g, 1, c, 2, w, device=cuda).to(din) for _ in range(2))
+            rp = _uniform(g, 1, 3, 2, w, device=cuda).to(din)
+            for d in (1, 7, 13, 104):
+                gk, rk = kernels.cost_volume_parts(l, r, rp, d, groups, out_dtype=dout)
+                grid, threads = kernels.cost_volume_grid(1, 2, w, d, groups, 3)
+                assert kernels.COST_VOLUME_LAUNCHED == dict(
+                    grid=grid, tile=(threads, 8 * kernels.cost_volume_tile(w, d), 8 * -(-d // 8)))
+                gp, rpp = cost_volume.cost_volume_parts(l, r, rp, d, groups, out_dtype=dout)
+                _assert_within_one_ulp(gk, gp, 2e-6)
+                assert torch.equal(rk, rpp)
+
+
+@pytest.mark.parametrize("w", [160, 84])
+def test_haloed_shards_through_column_0_stitch_bit_for_bit(cuda, w):
+    """4 shards at D = 104: every shard's halo (103 columns) passes column
+    0, into the zeros; shards of 40 columns (whole 8-column runs) and of 21
+    (ragged), each against its twin and stitched against K1 bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(25)
+    l, r = (_uniform(g, 1, 56, 3, w, device=cuda).bfloat16() for _ in range(2))
+    rp = _uniform(g, 1, 12, 3, w, device=cuda).bfloat16()
+    wl = w // 4
+    for j in range(4):
+        lj = l[..., j * wl:(j + 1) * wl].contiguous()
+        gk, rk = kernels.cost_volume_parts_haloed(lj, r, rp, 104, 2, j * wl, out_dtype=torch.bfloat16)
+        gp, rpp = cost_volume.cost_volume_parts_haloed(lj, r, rp, 104, 2, j * wl,
+                                                       out_dtype=torch.bfloat16)
+        _assert_within_one_ulp(gk, gp, 2e-6)
+        assert torch.equal(rk, rpp)
+    got = sharded.cost_volume_parts_sharded(l, r, rp, 104, 2, _one_card_mesh(cuda),
+                                            out_dtype=torch.bfloat16)
+    want = kernels.cost_volume_parts(l, r, rp, 104, 2, out_dtype=torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def _bf16_ulp(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7)
 
