@@ -31,16 +31,23 @@ Phases:
               line gives this exp time), and the rows carry the grid they
               launched (``kernels.FLASH_ATTENTION_LAUNCHED``; the log adds
               its waves); the fp32 variant is timed beside SDPA in fp32. The 3x3 conv (K4) is
-              held at seven shapes of the main path (the largest refinement
+              held at six shapes of the main path (the largest refinement
               conv, a ragged
               F = 127, the 1/16 level, the hourglass's (1, 3, 3) conv on the
-              5D volume, the F = 64 mask conv, the 1/8 level, and the largest
-              conv again in fp32), each with its grid's size.
+              5D volume, the F = 64 mask conv, the 1/8 level), each in bf16
+              and in fp32, each with its grid's size. The fp32 rows (K3, K4,
+              K3s) carry two bounds: the FMA one (``fp32_bound_ms``, at the
+              fp32 peak) and the three-pass TF32 one the kernels are judged
+              against (``fp32_tf32x3_bound_ms``, 3 x the products at the TF32
+              peak).
 4. path    -- the whole forward at a reduced size (448x672, 4 iterations)
               through the kernels, through the kernels with the 3x3 conv
               kernel (``pallas_conv3x3``), and through the plain twins, with
               the same weights and bf16 pyramids; both kernel runs must agree
-              with the plain one.
+              with the plain one. Then the model without mixed precision
+              through the fp32 kernels with the 3x3 conv kernel against the
+              plain twins (fp32 pyramids on both): max |d disp| <= 1e-2 px,
+              launches counted.
 5. serve   -- the full configuration (ViT-L, max_disp 416, bf16, seeded
               random weights) answers 3 requests of 736x1280 pairs through
               ``inference.demo.run_pair`` with 32 iterations; the output must
@@ -67,7 +74,8 @@ Phases:
               4 build, 128 lookup and 96 attention launches, no K1-K4
               launches, and the disparity of the unsharded forward on the
               same pairs, served before and after (their seconds and peak
-              memory are printed beside).
+              memory are printed beside). K3s's fp32 variant is held per
+              shard (1e-5) and stitched (bit for bit) on the same values.
               With two or more cards the same requests run with the shards
               on distinct cards and must give the same disparity.
 
@@ -75,7 +83,10 @@ Phases:
 for the served configuration, for the one with the 3x3 conv kernel (with
 K4's launches, device time and bound per conv shape) and for the served
 configuration under the mesh, each with the device time and launches of
-K1 / K5's build, K2 / K5's lookup and K3 / K3s under the profiler.
+K1 / K5's build, K2 / K5's lookup and K3 / K3s under the profiler; and, in
+the demo phase, one fp32 pair (``mixed_precision=False``) with the 3x3 conv
+kernel: K4's per-shape accounting and the fp32 K3 and K4 device time and
+launches (24 and 565).
 
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
@@ -96,9 +107,10 @@ import sys
 import time
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, dense bf16
-# tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
+# and TF32 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 FP32_FLOPS = 67e12
 
 MAIN = dict(vit_size="vitl", max_disp=416, height=736, width=1280, iters=32)
@@ -118,18 +130,19 @@ MESH_SHARDS = 4
 # ViT tokens at the main path: 736x1280 is resized to 784x1344 patches of 14.
 VIT_TOKENS = (784 // 14) * (1344 // 14) + 1
 # K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
-# dtype). Every bf16 tile path is among them.
+# dtype). Every tile path of either type is among them.
 _H4, _W4 = MAIN["height"] // 4, MAIN["width"] // 4
-K4_CASES = [
-    ("gru04.conv1 512->512", 512, 512, (_H4, _W4), "bfloat16"),
-    ("encoder.conv 320->127", 320, 127, (_H4, _W4), "bfloat16"),
-    ("gru16 z/r 384->256", 384, 256, (_H4 // 4, _W4 // 4), "bfloat16"),
+_K4_SHAPES = [
+    ("gru04.conv1 512->512", 512, 512, (_H4, _W4)),
+    ("encoder.conv 320->127", 320, 127, (_H4, _W4)),
+    ("gru16 z/r 384->256", 384, 256, (_H4 // 4, _W4 // 4)),
     ("hourglass (1,3,3) 168->168, 5D", 168, 168,
-     (MAIN["max_disp"] // 32, MAIN["height"] // 32, MAIN["width"] // 32), "bfloat16"),
-    ("mask.0 128->64", 128, 64, (_H4, _W4), "bfloat16"),
-    ("gru08.conv1 512->512", 512, 512, (_H4 // 2, _W4 // 2), "bfloat16"),
-    ("gru04.conv1 512->512 fp32", 512, 512, (_H4, _W4), "float32"),
+     (MAIN["max_disp"] // 32, MAIN["height"] // 32, MAIN["width"] // 32)),
+    ("mask.0 128->64", 128, 64, (_H4, _W4)),
+    ("gru08.conv1 512->512", 512, 512, (_H4 // 2, _W4 // 2)),
 ]
+K4_CASES = ([(n, c, f, sp, "bfloat16") for n, c, f, sp in _K4_SHAPES]
+            + [(f"{n} fp32", c, f, sp, "float32") for n, c, f, sp in _K4_SHAPES])
 # K4's kernels in a profiler's kernel names.
 K4_KERNEL = re.compile(r"conv3x3_\w+(<[^>]*>)?")
 
@@ -178,6 +191,16 @@ def host_us_per_call(fn, calls: int = 2000) -> float:
 def bound(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BPS, flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fp32_bounds(nbytes: float, flops: float) -> tuple[float, float, str]:
+    """(FMA bound ms, three-pass TF32 bound ms, what bounds the latter) of
+    an fp32 product: the FLOPs on the fp32 FMA units, or three times them
+    on the TF32 tensor cores (the kernels' hi/lo split), each against the
+    bytes. The kernels are judged against the second."""
+    fma_ms, _ = bound(nbytes, flops, FP32_FLOPS)
+    tc_ms, tc_by = bound(nbytes, 3 * flops, TF32_FLOPS)
+    return fma_ms, tc_ms, tc_by
 
 
 def bf16_ulp(x):
@@ -510,14 +533,16 @@ def check_attention(dev, gen) -> dict:
     # The fp32 kernel (the model without mixed precision) on the same inputs.
     qkv32 = qkv.float()
     out32 = kernels.flash_attention(qkv32, scale)
+    grid32 = attention_launched()
     torch.cuda.synchronize()
-    err32 = float((out32 - ref).abs().max())
+    err32, mean32 = float((out32 - ref).abs().max()), float((out32 - ref).abs().mean())
     del ref, out32
-    log(f"[kernels] flash_attention fp32: N={N}, max abs err {err32:.3g} vs fp32 dense "
-        f"(tolerance 1e-5: summation order)")
+    log(f"[kernels] flash_attention fp32: N={N}, max abs err {err32:.3g}, mean abs err {mean32:.3g} "
+        f"vs fp32 dense (tolerance 1e-5: three-pass TF32 products, ~2^-21 of each, and sums "
+        f"in another order)")
     check(err32 <= 1e-5, "fp32 flash_attention disagrees with the fp32 dense reference")
-    fp32_ms = cuda_ms(lambda: kernels.flash_attention(qkv32, scale), 3)
-    fp32_bound_ms, _ = bound(qkv32.numel() * 4 * 4 / 3, 4.0 * B * Hh * N * N * hd, FP32_FLOPS)
+    fp32_ms = cuda_ms(lambda: kernels.flash_attention(qkv32, scale), 5)
+    fp32_bound_ms, fp32_tc_ms, _ = fp32_bounds(qkv32.numel() * 4 * 4 / 3, 4.0 * B * Hh * N * N * hd)
     qs, ks, vs = (t.transpose(1, 2).contiguous() for t in qkv32.unbind(2))
     fp32_library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 3)
     del qkv32, qs, ks, vs
@@ -530,8 +555,10 @@ def check_attention(dev, gen) -> dict:
     flops = 4.0 * B * Hh * N * N * hd
     clock = sm_clock_mhz()
     b_ms, b_by, e_ms = attention_bound(nbytes, flops, B * Hh * N * N, sms, clock)
-    log(f"[kernels] flash_attention fp32: {fp32_ms:.4g} ms (bound {fp32_bound_ms:.4g} ms at "
-        f"the fp32 peak); SDPA in fp32 {fp32_library_ms:.4g} ms")
+    log(f"[kernels] flash_attention fp32: {fp32_ms:.4g} ms, three-pass TF32 bound {fp32_tc_ms:.4g} ms "
+        f"(3 x products at the TF32 peak), FMA bound {fp32_bound_ms:.4g} ms (at the fp32 peak); "
+        f"SDPA in fp32 {fp32_library_ms:.4g} ms; grid {grid32['blocks']} blocks ({grid32['tile']}), "
+        f"{grid32['blocks'] / sms:.2f} waves")
     log(f"[kernels] flash_attention bf16: {ms:.4g} ms, {flops / ms / 1e9:.4g} TF/s; bound "
         f"{b_ms:.4g} ms ({b_by}), exp {e_ms:.4g} ms (one ex2 per score, 16 per SM per clock at "
         f"{clock:.0f} MHz); SDPA {library_ms:.4g} ms; grid {grid['blocks']} blocks "
@@ -544,8 +571,9 @@ def check_attention(dev, gen) -> dict:
                 tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of mean |ref|, "
                           "vs fp32 dense",
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
-                grid=grid, fp32_max_abs_err=err32, fp32_ms=fp32_ms,
-                fp32_bound_ms=fp32_bound_ms, fp32_library_ms=fp32_library_ms)
+                grid=grid, fp32_max_abs_err=err32, fp32_mean_abs_err=mean32, fp32_ms=fp32_ms,
+                fp32_bound_ms=fp32_bound_ms, fp32_tf32x3_bound_ms=fp32_tc_ms,
+                fp32_library_ms=fp32_library_ms, fp32_grid=grid32)
 
 
 def _conv_case(dev, gen, c, f, spatial, dtype):
@@ -565,9 +593,22 @@ def _conv_errors(x, w, bias, out, ref):
     order, so each is within (K - 1) * 2^-24 * S of the exact sum (K = 9*C
     terms, S = sum of |x * w| + |bias|, recursive summation); the two within
     twice that. bf16 outputs then round once each: 1 bf16 ulp of the larger.
+
+    fp32: the kernel's products are no longer exact fp32 products. Each is
+    the three-pass TF32 sum lo_x hi_w + hi_x lo_w + hi_x hi_w, within
+    3 * 2^-22 of x * w (the dropped lo_x lo_w and the two split residuals),
+    so 12 * 2^-24 * S in all. The tensor cores add each 8-channel K step
+    into a partial sum of one 16-channel chunk (3 * 18 steps, each rounded
+    toward zero: 2^-23 of the sums it touches) and the C / 16 partials are
+    added in fp32 to nearest: within (108 + C / 16) * 2^-24 * S. With the
+    twin's (K - 1) * 2^-24 * S the two stay within the same limit for every
+    C >= 16, since 108 + C / 16 + 12 <= K - 1 = 9C - 1.
+
     Mean: a skipped tap, row or channel moves the mean error by a sizeable
     part of mean |ref|; rounding and order alone keep it under half the
-    mean bf16 ulp of |ref| (bf16) or 1e-5 x mean |ref| (fp32).
+    mean bf16 ulp of |ref| (bf16) or 1e-5 x mean |ref| (fp32; a model of
+    the round-toward-zero adds puts one accumulator over all K terms at ~4x
+    this, one per chunk at ~0.13x).
     """
     import torch
 
@@ -597,6 +638,9 @@ def k4_launched() -> dict:
 
 
 def check_conv3x3(dev, gen) -> dict:
+    """K4 at every case of ``K4_CASES`` against its twin; the row is the
+    first (largest) bf16 conv's, with the fp32 variant of the same shape in
+    its ``fp32_*`` keys and every case under ``cases``."""
     import torch
     import torch.nn.functional as F
 
@@ -619,12 +663,20 @@ def check_conv3x3(dev, gen) -> dict:
         library_ms = cuda_ms(lambda: F.conv2d(x4, wl, bl, padding=1), 10)
         flops = 2.0 * 9 * c * f * x[0, 0].numel()
         nbytes = (x.numel() + 9 * c * f + out.numel()) * x.element_size() + 4 * f
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        bounds = {}
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            text = f"bound {b_ms:.4g} ms ({b_by})"
+        else:
+            fma_ms, b_ms, b_by = fp32_bounds(nbytes, flops)
+            bounds = dict(fma_bound_ms=fma_ms)
+            text = (f"three-pass TF32 bound {b_ms:.4g} ms ({b_by}), FMA bound {fma_ms:.4g} ms, "
+                    f"{3 * flops / ms / 1e9:.4g} TF/s in TF32 passes")
         log(f"[kernels] conv3x3 {name} {tuple(x.shape)}: max abs err {err:.3g}, mean abs err "
-            f"{mean_err:.3g} (per element <= 1 bf16 ulp + 2(9C-1) 2^-24 sum|x w| -> {ok}; "
-            f"mean -> {mean_ok}); {ms:.4g} ms, F.conv2d {library_ms:.4g} ms, bound {b_ms:.4g} ms "
-            f"({b_by}), {flops / ms / 1e9:.4g} TFLOP/s; grid {grid['blocks']} blocks "
-            f"({grid['tile']}) on {sms} SMs")
+            f"{mean_err:.3g} (per element <= {'1 bf16 ulp + ' if dtype == torch.bfloat16 else ''}"
+            f"2(9C-1) 2^-24 sum|x w| -> {ok}; mean -> {mean_ok}); {ms:.4g} ms, F.conv2d "
+            f"{library_ms:.4g} ms, {text}, {flops / ms / 1e9:.4g} TFLOP/s; grid {grid['blocks']} "
+            f"blocks ({grid['tile']}) on {sms} SMs")
         check(ok and mean_ok, f"conv3x3 {name} disagrees with its twin")
         if row is None:                              # the largest bf16 conv is the row's shape
             plain_ms = cuda_ms(lambda: kernels.conv3x3_plain(x, w, bias), 2)
@@ -638,7 +690,12 @@ def check_conv3x3(dev, gen) -> dict:
                        library_ms=library_ms, cases={})
         row["cases"][name] = dict(max_abs_err=err, mean_abs_err=mean_err, ms=ms,
                                   library_ms=library_ms, bound_ms=b_ms, bound_by=b_by,
-                                  grid=grid)
+                                  grid=grid, **bounds)
+        if dtype == torch.float32 and "fp32_ms" not in row:     # the row's shape in fp32
+            row.update(fp32_max_abs_err=err, fp32_mean_abs_err=mean_err, fp32_ms=ms,
+                       fp32_bound_ms=bounds["fma_bound_ms"], fp32_tf32x3_bound_ms=b_ms,
+                       fp32_library_ms=library_ms, fp32_grid=grid,
+                       fp32_tolerance="per element 2(9C-1) 2^-24 sum|x w|; mean <= 1e-5 mean |ref|")
         del x, out, ref, packed
         torch.cuda.empty_cache()
     # The host's own cost per call, at the 1/16-level z/r conv's channels on
@@ -694,6 +751,46 @@ def check_path(dev) -> None:
             f"{float(outs['plain'].mean()):.4g} px (tolerance: mean <= 0.05 px, p99 <= 0.5 px)")
         check(bool(torch.isfinite(outs[name]).all()), f"non-finite disparity on the {name} path")
         check(mean <= 0.05 and p99 <= 0.5, f"the {name} path disagrees with the plain path")
+    check_path_fp32(dev, left, right)
+
+
+def check_path_fp32(dev, left, right) -> None:
+    """The model without mixed precision, the fp32 kernels with the 3x3
+    conv kernel, against the plain twins (fp32 throughout, TF32 off, fp32
+    pyramids on both): max |d disp| <= 1e-2 px, and the fp32 K3 and K4
+    launched as often as one pass routes them."""
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.inference.demo import run_pair
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.ops import kernels
+
+    iters = PATH["iters"]
+    cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=False)
+    outs = {}
+    for name, c in (("fp32 kernels + conv3x3", cfg.replace(pallas_conv3x3=True)),
+                    ("fp32 plain", cfg.replace(use_pallas=False))):
+        model = FoundationStereo(c, device=dev, seed=0)
+        model.pyramid_dtype = torch.float32
+        kernels.reset_launches()
+        outs[name] = run_pair(model, left, right, iters=iters).float()
+        launches = dict(kernels.LAUNCHES)
+        del model
+        torch.cuda.empty_cache()
+        if name != "fp32 plain":
+            want = dict.fromkeys(launches, 0)
+            want.update(cost_volume_parts=1, disparity_lookup=iters,
+                        flash_attention=VIT_CONFIGS[MAIN["vit_size"]]["depth"],
+                        conv3x3=K4_OUTSIDE + iters * K4_PER_ITER)
+            log(f"[path] fp32 launches {launches}")
+            check(launches == want, f"fp32 launch counts {launches}, expected {want}")
+    diff = (outs["fp32 kernels + conv3x3"] - outs["fp32 plain"]).abs()
+    log(f"[path] {PATH['height']}x{PATH['width']}, {iters} iterations, mixed_precision=False: fp32 "
+        f"kernels + conv3x3 vs plain twins |d disp| max {float(diff.max()):.4g} px, mean "
+        f"{float(diff.mean()):.4g} px (tolerance: max <= 1e-2 px)")
+    check(bool(torch.isfinite(outs["fp32 kernels + conv3x3"]).all()), "non-finite fp32 disparity")
+    check(float(diff.max()) <= 1e-2, "the fp32 kernel path disagrees with the plain path")
 
 
 def serve(dev, requests: int, profile: bool = False) -> dict:
@@ -796,7 +893,51 @@ def demo(dev, profile: bool = False) -> dict:
     if profile:
         log("[profile] the configuration with the 3x3 conv kernel (pallas_conv3x3=True):")
         profile_pair(model, make_pair(H, W, 100))
+        del model
+        torch.cuda.empty_cache()
+        profile_fp32_pair(dev, make_pair(H, W, 100))
     return launches
+
+
+def profile_fp32_pair(dev, pair) -> None:
+    """One 736x1280 pair of the model without mixed precision, with the 3x3
+    conv kernel: K4's per-shape accounting, then the fp32 K3 and K4 device
+    time and launches under torch.profiler (24 and K4_OUTSIDE + 32 x
+    K4_PER_ITER per pass)."""
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.inference.demo import run_pair
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+
+    cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=False,
+                      pallas_conv3x3=True)
+    model = FoundationStereo(cfg, device=dev, seed=0)
+    log("[profile] fp32 (mixed_precision=False) with the 3x3 conv kernel:")
+    run_pair(model, *pair, iters=MAIN["iters"])
+    with K4Account() as k4:
+        run_pair(model, *pair, iters=MAIN["iters"])
+    torch.cuda.synchronize()
+    k4.report()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_pair(model, *pair, iters=MAIN["iters"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    log(f"[profile] fp32 pair under the profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f} %)")
+    want = {"conv3x3_fp32": K4_OUTSIDE + MAIN["iters"] * K4_PER_ITER,
+            "flash_fwd_f32": VIT_CONFIGS[MAIN["vit_size"]]["depth"]}
+    for pattern, n in want.items():
+        ev = [e for e in kern if pattern in e.key]
+        count = sum(e.count for e in ev)
+        log(f"[profile] {pattern} kernels under the profiler: "
+            f"{sum(e.self_device_time_total for e in ev) / 1e3:.3f} ms of device time over {count} "
+            f"launches (expected {n})")
+        check(count == n, f"{pattern}: {count} launches in the fp32 pair, expected {n}")
 
 
 # ---------------------------------------------------------------------------
@@ -919,7 +1060,8 @@ def check_lookup_sharded(dev, gen, mesh) -> dict:
 
 def check_attention_sharded(dev, gen, mesh) -> dict:
     """K3s for each head shard against the fp32 dense twin (K3's tolerance),
-    and the stitched output against K3's."""
+    and the stitched output against K3's; the same for the fp32 variant
+    (tolerance 1e-5) on the same values in fp32."""
     import torch
     import torch.nn.functional as F
 
@@ -930,6 +1072,7 @@ def check_attention_sharded(dev, gen, mesh) -> dict:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     clock = sm_clock_mhz()
     qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
+    qkv32 = qkv.float()
     shards = []
     for j in range(MESH_SHARDS):
         h0 = j * hl
@@ -939,6 +1082,7 @@ def check_attention_sharded(dev, gen, mesh) -> dict:
         ref = kernels.flash_attention_plain(part.float(), scale)
         torch.cuda.synchronize()
         err, tol_max, mean_err, tol_mean, _, _, ok = attention_errors(out, ref)
+        fp32 = check_attention_shard_fp32(qkv32, scale, h0, hl, ref, sms)
         del ref
         ms = cuda_ms(lambda: kernels.flash_attention_heads(qkv, scale, h0, hl), 10)
         plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(part, scale), 3)
@@ -955,7 +1099,7 @@ def check_attention_sharded(dev, gen, mesh) -> dict:
         check(ok, f"flash_attention_heads shard {j} disagrees with the fp32 dense reference")
         shards.append(dict(shard=j, heads=[h0, h0 + hl], max_abs_err=err, mean_abs_err=mean_err,
                            ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                           bound_by=b_by, grid=grid))
+                           bound_by=b_by, grid=grid, **fp32))
         del out
     got = sharded.flash_attention_sharded(qkv, scale, mesh)
     equal = bool(torch.equal(got, kernels.flash_attention(qkv, scale)))
@@ -963,12 +1107,49 @@ def check_attention_sharded(dev, gen, mesh) -> dict:
     log(f"[mesh] flash_attention_sharded ({MESH_SHARDS} head shards) equals K3 bit for bit: {equal}; "
         f"{sharded_ms:.4g} ms for the whole sharded call")
     check(equal, "the stitched sharded attention differs from K3")
+    equal32 = bool(torch.equal(sharded.flash_attention_sharded(qkv32, scale, mesh),
+                               kernels.flash_attention(qkv32, scale)))
+    log(f"[mesh] fp32 flash_attention_sharded ({MESH_SHARDS} head shards) equals fp32 K3 bit for "
+        f"bit: {equal32}")
+    check(equal32, "the stitched sharded fp32 attention differs from fp32 K3")
+    del qkv32
     return _shard_row("flash_attention_heads", "foundationstereo_torch/csrc/flash_attention.cu",
                       "foundationstereo_tpu/models/dinov2.py:106", shards, equal,
                       tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of mean |ref|, "
                                 "vs fp32 dense",
                       library_ms=sum(sh["library_ms"] for sh in shards) / len(shards),
-                      grid=shards[0]["grid"], sharded_call_ms=sharded_ms)
+                      grid=shards[0]["grid"], sharded_call_ms=sharded_ms,
+                      fp32_stitched_equal=equal32,
+                      **{k: sum(sh[k] for sh in shards) / len(shards)
+                         for k in ("fp32_max_abs_err", "fp32_ms", "fp32_bound_ms",
+                                   "fp32_tf32x3_bound_ms", "fp32_library_ms")})
+
+
+def check_attention_shard_fp32(qkv32, scale, h0, hl, ref, sms) -> dict:
+    """One fp32 K3s shard against the fp32 dense twin ``ref`` (1e-5), timed
+    beside SDPA in fp32 on the slice, with both fp32 bounds."""
+    import torch
+    import torch.nn.functional as F
+
+    from foundationstereo_torch.ops import kernels
+
+    B, N, _, _, hd = qkv32.shape
+    out = kernels.flash_attention_heads(qkv32, scale, h0, hl)
+    grid = attention_launched()
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    check(err <= 1e-5, f"fp32 flash_attention_heads at head {h0} disagrees with the fp32 dense twin")
+    ms = cuda_ms(lambda: kernels.flash_attention_heads(qkv32, scale, h0, hl), 5)
+    part = qkv32[:, :, :, h0:h0 + hl]
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in part.unbind(2))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 3)
+    fma_ms, tc_ms, _ = fp32_bounds((part.numel() + out.numel()) * 4, 4.0 * B * hl * N * N * hd)
+    log(f"[mesh] fp32 flash_attention_heads heads [{h0}, {h0 + hl}): max abs err {err:.3g} (tolerance "
+        f"1e-5) vs fp32 dense; {ms:.4g} ms, SDPA in fp32 on the slice {library_ms:.4g} ms, "
+        f"three-pass TF32 bound {tc_ms:.4g} ms, FMA bound {fma_ms:.4g} ms; grid {grid['blocks']} "
+        f"blocks, {grid['blocks'] / sms:.2f} waves")
+    return dict(fp32_max_abs_err=err, fp32_ms=ms, fp32_bound_ms=fma_ms, fp32_tf32x3_bound_ms=tc_ms,
+                fp32_library_ms=library_ms, fp32_grid=grid)
 
 
 def serve_pairs(model, pairs, label: str) -> tuple[list, list, float]:
@@ -1066,7 +1247,8 @@ class K4Account:
     """Times every K4 call of a run with CUDA events around it, grouped by
     shape (C, F, H, W, images), beside each group's summed bound (bytes:
     input, weight and output once; operations: 2 * 9 * C * F per output
-    pixel). Wraps ``kernels.conv3x3`` while it is entered, which is where the
+    pixel, at the bf16 peak, or three times that at the TF32 peak for
+    fp32). Wraps ``kernels.conv3x3`` while it is entered, which is where the
     routed convs look it up. The events time the call on the pair's
     timeline, host gaps included where the card waits for the launch;
     ``report`` also re-times one call of each shape alone (``cuda_ms``, the
@@ -1090,8 +1272,9 @@ class K4Account:
             images = x.numel() // (c * h * w)
             esize = x.element_size()
             flop = 2.0 * 9 * c * f * images * h * w
-            b_ms, _ = bound((x.numel() + 9 * c * f + f * images * h * w) * esize, flop,
-                            BF16_FLOPS if esize == 2 else FP32_FLOPS)
+            nbytes = (x.numel() + 9 * c * f + f * images * h * w) * esize
+            # bf16: one tensor-core pass; fp32: three TF32 passes
+            b_ms = bound(nbytes, flop, BF16_FLOPS)[0] if esize == 2 else fp32_bounds(nbytes, flop)[1]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = self._wrapped(x, weight, *args, **kwargs)

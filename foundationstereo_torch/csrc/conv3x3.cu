@@ -47,24 +47,34 @@
 //   so that each warp stores whole 64-pixel rows of one channel (predicated on
 //   ragged W and F).
 //
-// fp32 (the model without mixed precision): the same tiling on the fp32 FMA
-// units (no TF32), 64 output channels per block, each thread one column of
-// 4 output rows x 8 channels, weights read as warp-wide broadcasts.
+// fp32 (the model without mixed precision): the same plan on TF32 wgmma in
+// three passes (tf32x3.cuh), held to the fp32 tolerance. What changes for
+// 4-byte elements:
+// - A core matrix is 8 pixels x 4 channels, so the patch is [4-channel
+//   group][pixel][4 channels], chunks of 16 channels, and a tap still moves
+//   A's start by (dy * 66 + dx) * 16 bytes. Warps 1-3 split each value into
+//   tf32 hi and lo as they stage it (4 pixels of a channel per 16-byte load,
+//   transposed in registers) and write a hi and a lo image of the patch.
+// - pack_conv3x3_weight(w, float32) packs each (chunk, tap) tile as its hi
+//   then its lo image, [4-channel group][BN rows][4 channels], the layout the
+//   B descriptor reads (no swizzle); one bulk copy moves both.
+// - Per tap, each 8-channel K step is three wgmma m64nBNk8 (lo * hi, hi * lo,
+//   then hi * hi) into a partial accumulator that starts fresh at each
+//   chunk; at the chunk's end it is added to the fp32 total (the tensor
+//   cores' round-toward-zero adds would bias a sum over all 9 C terms). The
+//   two accumulators need 128 registers, so a consumer warpgroup owns one
+//   64-pixel row of 128 channels (BN = 128) or two of 64 (BN = 64, F <= 64):
+//   blocks of 2 x 64 px x 128 ch or 4 x 64 px x 64 ch.
+// - Epilogue: bias in fp32, outputs stored as fp32.
+// Bound on the H100: operations, three TF32 passes (3 * 278 GFLOP at 512 ->
+// 512 and 184 x 320, 1.69 ms at 494.7 TF/s).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
-
-constexpr int kTH = 4;                       // output rows per block
-constexpr int kTW = 32;                      // output columns per block
-constexpr int kHW = kTW + 2;                 // haloed patch width
-constexpr int kHaloPix = (kTH + 2) * kHW;    // haloed patch pixels (204)
-constexpr int kThreads = 256;
-
-// fp32 kernel
-constexpr int kFBN = 64;
-constexpr int kFKC = 8;
 
 // bf16 kernel
 constexpr int kMW = 64;                      // output columns per block: one wgmma M tile
@@ -91,13 +101,36 @@ struct Plan {
   static_assert(kSmem <= 232448, "shared memory");
 };
 
+// fp32 kernel
+constexpr int kKC32 = 16;                    // input channels per K chunk: 4 groups of 4
+constexpr int kStages32 = 6;                 // weight ring stages
+constexpr int kStageLd32 = kMW + 4;          // fp32 per row of the epilogue's staging (conflict-free)
+
+template <int BN>
+struct Plan32 {
+  static constexpr int R = 128 / BN;                        // output rows per consumer warpgroup
+  static constexpr int kN2 = BN / 2;                         // accumulator registers per row
+  static constexpr int kRows = kConsumers * R;              // output rows per block
+  static constexpr int kPix = (kRows + 2) * kPW;             // haloed patch pixels
+  static constexpr int kGroup = kPix * 16;                   // bytes of one 4-channel group
+  static constexpr int kImage = 4 * kGroup;                  // bytes of one chunk's hi or lo image
+  static constexpr int kPatch = 2 * kImage;                  // bytes of one patch buffer (hi, lo)
+  static constexpr int kTile = BN * kKC32 * 4;               // bytes of one (chunk, tap) hi or lo tile
+  static constexpr int kRing = (2 * kPatch + 1023) / 1024 * 1024;
+  static constexpr int kBars = kRing + kStages32 * 2 * kTile;
+  static constexpr int kSmem = kBars + 8 * (2 * kStages32 + 4) + 1024;
+  static constexpr int kStaging = R * BN * kStageLd32 * 4;   // epilogue bytes per consumer warpgroup
+  static_assert(kConsumers * kStaging <= kBars, "the staging reuses the patch buffers and the ring");
+  static_assert(kSmem <= 232448, "shared memory");
+};
+
 struct Geometry {
   int n_inner;                   // images = n_outer * n_inner (grid z)
   long long xso, xsi, xsc;       // input strides: outer batch, inner batch, channel
   long long oso, osi, osc;       // output strides
   int C, H, W, F, Cp, Fp;        // Cp, Fp: the packed weight's padded C and F
   int tiles_x;                   // column tiles per row of tiles
-  int vec;                       // bf16: x, W and the input strides allow 16-byte loads
+  int vec;                       // x, W and the input strides allow 16-byte loads
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -453,72 +486,263 @@ conv3x3_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-conv3x3_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                    const float* __restrict__ bias, float* __restrict__ out, Geometry g) {
-  __shared__ float s_in[kFKC][kTH + 2][kHW];
-  __shared__ __align__(16) float s_w[kFKC][9][kFBN];
-
-  const int img = blockIdx.z;
-  const float* xb = x + (img / g.n_inner) * g.xso + (img % g.n_inner) * g.xsi;
-  float* ob = out + (img / g.n_inner) * g.oso + (img % g.n_inner) * g.osi;
-  const int x0 = (blockIdx.x % g.tiles_x) * kTW, y0 = (blockIdx.x / g.tiles_x) * kTH;
-  const int n0 = blockIdx.y * kFBN;
-  const int tx = threadIdx.x & 31;            // output column in the tile
-  const int fw = (threadIdx.x >> 5) * 8;      // the warp's 8 channels
-
-  float acc[kTH][8];
+// Packs 4 channels of one patch pixel (4-byte loads, predicated), split into
+// tf32 hi and lo, into its 16-byte slots of the hi and lo images.
+template <class P>
+__device__ __forceinline__ void load_pixel32(unsigned char* dst, const float* xs, const Geometry& g, int grp,
+                                             int py, int px, int c, int x0, int y0) {
+  const int yy = y0 - 1 + py, xx = x0 - 1 + px, ch = c * kKC32 + grp * 4;
+  const bool in = yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+  const float* src = xs + ch * g.xsc + (long long)yy * g.W + xx;
+  uint32_t hi[4], lo[4];
 #pragma unroll
-  for (int r = 0; r < kTH; ++r)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[r][j] = 0.f;
+  for (int j = 0; j < 4; ++j) tf32x3::split((in && ch + j < g.C) ? __ldg(src + j * g.xsc) : 0.f, hi[j], lo[j]);
+  unsigned char* slot = dst + grp * P::kGroup + (py * kPW + px) * 16;
+  *reinterpret_cast<uint4*>(slot) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+  *reinterpret_cast<uint4*>(slot + P::kImage) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+}
 
-  for (int c0 = 0; c0 < g.Cp; c0 += kFKC) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kFKC * kHaloPix; idx += kThreads) {
-      const int c = idx / kHaloPix, pix = idx % kHaloPix;
-      const int yy = y0 - 1 + pix / kHW, xx = x0 - 1 + pix % kHW;
-      float v = 0.f;
-      if (c0 + c < g.C && yy >= 0 && yy < g.H && xx >= 0 && xx < g.W)
-        v = xb[(c0 + c) * g.xsc + (long long)yy * g.W + xx];
-      s_in[c][pix / kHW][pix % kHW] = v;
-    }
-    for (int idx = threadIdx.x; idx < kFKC * 9 * kFBN; idx += kThreads) {
-      const int c = idx % kFKC, row = idx / kFKC;   // row = tap * kFBN + n
-      const int tap = row / kFBN, n = row % kFBN;
-      s_w[c][tap][n] = wp[((long long)tap * g.Fp + n0 + n) * g.Cp + c0 + c];
-    }
-    __syncthreads();
-
+// Chunk c's patch from 16-byte loads: item (group, row, v) is the 4 pixels
+// x0 + 4v .. x0 + 4v + 3 of the group's 4 channels, one load per channel,
+// transposed in registers into 4 pixel slots of each image; the two halo
+// columns come pixel by pixel. Needs W, the strides and x's address
+// multiples of 4 elements (then a vector is all inside or all outside the
+// image).
+template <class P>
+__device__ __forceinline__ void load_patch32_vec(unsigned char* dst, const float* xs, const Geometry& g, int c,
+                                                 int x0, int y0, int t) {
+  constexpr int kPR = P::kRows + 2;          // patch rows
+  constexpr int kItems = 4 * kPR * 16;
+  const int v = t & 15;                      // every item of this thread has the same v
+  const int rot = (v >> 1) & 3;              // slot rotation: a quarter-warp's stores hit 8 bank groups
+  const long long cs = g.xsc / 4;            // channel stride in 16-byte vectors
 #pragma unroll 1
-    for (int c = 0; c < kFKC; ++c) {
+  for (int i0 = t; i0 < kItems; i0 += 2 * kLoaders) {
+    float4 in[2][4];
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int dy = tap / 3, dx = tap % 3;
-        const float4 w0 = *reinterpret_cast<const float4*>(&s_w[c][tap][fw]);
-        const float4 w1 = *reinterpret_cast<const float4*>(&s_w[c][tap][fw + 4]);
-        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+    for (int u = 0; u < 2; ++u) {
+      const int item = i0 + u * kLoaders, py = (item >> 4) % kPR, grp = (item >> 4) / kPR;
+      const int yy = y0 - 1 + py, xx = x0 + 4 * v, ch = c * kKC32 + grp * 4;
+      const bool ok = item < kItems && yy >= 0 && yy < g.H && xx < g.W;
+      const float4* src = reinterpret_cast<const float4*>(xs + ch * g.xsc + (long long)yy * g.W + xx);
 #pragma unroll
-        for (int r = 0; r < kTH; ++r) {
-          const float a = s_in[c][r + dy][tx + dx];
+      for (int j = 0; j < 4; ++j)
+        in[u][j] = (ok && ch + j < g.C) ? __ldg(src + j * cs) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(a, wv[j], acc[r][j]);
-        }
+    for (int u = 0; u < 2; ++u) {
+      const int item = i0 + u * kLoaders, py = (item >> 4) % kPR, grp = (item >> 4) / kPR;
+      if (item >= kItems) break;
+      // Pixel i of the vector: (channel 0..3) = (in[0].i, .., in[3].i).
+      uint4 h[4], l[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4* q = in[u];
+        h[i] = tf32x3::split4(i == 0   ? make_float4(q[0].x, q[1].x, q[2].x, q[3].x)
+                              : i == 1 ? make_float4(q[0].y, q[1].y, q[2].y, q[3].y)
+                              : i == 2 ? make_float4(q[0].z, q[1].z, q[2].z, q[3].z)
+                                       : make_float4(q[0].w, q[1].w, q[2].w, q[3].w),
+                              l[i]);
+      }
+      tf32x3::rotate4(h, rot);
+      tf32x3::rotate4(l, rot);
+      unsigned char* row = dst + grp * P::kGroup + (py * kPW + 1 + 4 * v) * 16;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        unsigned char* slot = row + ((i + rot) & 3) * 16;
+        *reinterpret_cast<uint4*>(slot) = h[i];
+        *reinterpret_cast<uint4*>(slot + P::kImage) = l[i];
       }
     }
   }
+  for (int item = t; item < 4 * kPR * 2; item += kLoaders) {
+    const int rest = item >> 1;
+    load_pixel32<P>(dst, xs, g, rest / kPR, rest % kPR, (item & 1) ? kPW - 1 : 0, c, x0, y0);
+  }
+}
 
-  const int xx = x0 + tx;
-  if (xx >= g.W) return;
+// Chunk c's patch pixel by pixel (any alignment): item (group, pixel),
+// pixel fastest, so a warp's loads of one channel are consecutive x.
+template <class P>
+__device__ __forceinline__ void load_patch32_px(unsigned char* dst, const float* xs, const Geometry& g, int c,
+                                                int x0, int y0, int t) {
+#pragma unroll 2
+  for (int item = t; item < 4 * P::kPix; item += kLoaders) {
+    const int grp = item / P::kPix, pix = item - grp * P::kPix;
+    load_pixel32<P>(dst, xs, g, grp, pix / kPW, pix % kPW, c, x0, y0);
+  }
+}
+
+// One tap of a chunk: wait for its weight stage, then per 8-channel K step
+// three wgmma (small terms first: lo * hi, hi * lo, then hi * hi) per
+// output row into the partial accumulators, fresh at the chunk's first tap;
+// one commit.
+template <class P>
+__device__ __forceinline__ void issue_tap32(float (&part)[P::R][P::kN2], uint32_t pa, uint32_t base, int step,
+                                            int tap, uint32_t wfull) {
+  constexpr int BN = 2 * P::kN2;
+  const int s = step % kStages32;
+  mbar_wait(wfull + 8 * s, (step / kStages32) & 1);
+  const uint32_t a0 = pa + ((tap / 3) * kPW + tap % 3) * 16;
+  const uint32_t b0 = base + P::kRing + s * 2 * P::kTile;
+  wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int f = n0 + fw + j;
-    if (f >= g.F) continue;
-    const float bf = bias ? bias[f] : 0.f;
+  for (int pass = 0; pass < 3; ++pass) {
+    const uint32_t ap = a0 + (pass == 0 ? P::kImage : 0), bp = b0 + (pass == 1 ? P::kTile : 0);
 #pragma unroll
-    for (int r = 0; r < kTH; ++r) {
-      const int y = y0 + r;
-      if (y < g.H) ob[f * g.osc + (long long)y * g.W + xx] = acc[r][j] + bf;
+    for (int kk = 0; kk < kKC32 / 8; ++kk) {
+      const uint64_t db = tf32x3::desc(bp + kk * 2 * BN * 16, BN * 16, 128);
+#pragma unroll
+      for (int r = 0; r < P::R; ++r)
+        tf32x3::mma(part[r], tf32x3::desc(ap + r * kPW * 16 + kk * 2 * P::kGroup, P::kGroup, 128), db,
+                    tap > 0 || pass > 0 || kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kBThreads, 1)
+conv3x3_fp32_kernel(const float* __restrict__ x, const float* __restrict__ wp, const float* __restrict__ bias,
+                    float* __restrict__ out, Geometry g) {
+  using P = Plan32<BN>;
+  constexpr int R = P::R;
+  extern __shared__ unsigned char smem_raw[];
+  // [patch 0 hi, lo][patch 1 hi, lo][weight ring, each stage hi then lo][mbarriers]
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bars = base + P::kBars;
+  const uint32_t wfull = bars, wempty = bars + 8 * kStages32;
+  const uint32_t pfull = bars + 16 * kStages32, pempty = pfull + 16;
+
+  const int img = blockIdx.z;
+  const int n0 = blockIdx.x * BN;
+  const int x0 = (blockIdx.y % g.tiles_x) * kMW, y0 = (blockIdx.y / g.tiles_x) * P::kRows;
+  const int nchunks = g.Cp / kKC32;
+  const int wg = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages32; ++s) {
+      mbar_init(wfull + 8 * s, 1);
+      mbar_init(wempty + 8 * s, 4 * kConsumers);
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(pfull + 8 * b, kLoaders);
+      mbar_init(pempty + 8 * b, 4 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+    const int warp = (threadIdx.x >> 5) & 3;
+    if (warp == 0) {
+      // The weights: tile (N block, chunk, tap), hi then lo, at step chunk * 9 + tap.
+      if ((threadIdx.x & 31) == 0) {
+        const long long tile = 2LL * BN * kKC32;
+        const float* src = wp + (long long)blockIdx.x * nchunks * 9 * tile;
+        for (int step = 0; step < nchunks * 9; ++step) {
+          const int s = step % kStages32;
+          if (step >= kStages32) mbar_wait(wempty + 8 * s, (step / kStages32 - 1) & 1);
+          mbar_expect_tx(wfull + 8 * s, 2 * P::kTile);
+          bulk_load(base + P::kRing + s * 2 * P::kTile, src + step * tile, 2 * P::kTile, wfull + 8 * s);
+        }
+      }
+    } else {
+      // The input patch, split into hi and lo, by warps 1-3.
+      const int t = threadIdx.x - (128 * kConsumers + 32);
+      const float* xs = x + (img / g.n_inner) * g.xso + (img % g.n_inner) * g.xsi;
+      for (int c = 0; c < nchunks; ++c) {
+        const int b = c & 1;
+        if (c >= 2) mbar_wait(pempty + 8 * b, ((c >> 1) - 1) & 1);
+        unsigned char* dst = smem + b * P::kPatch;
+        if (g.vec)
+          load_patch32_vec<P>(dst, xs, g, c, x0, y0, t);
+        else
+          load_patch32_px<P>(dst, xs, g, c, x0, y0, t);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(pfull + 8 * b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3;
+  float acc[R][P::kN2], part[R][P::kN2];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+#pragma unroll
+    for (int i = 0; i < P::kN2; ++i) acc[r][i] = part[r][i] = 0.f;
+    fence_acc(part[r]);
+  }
+
+  int step = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    const int b = c & 1;
+    mbar_wait(pfull + 8 * b, (c >> 1) & 1);
+    // The warpgroup's first output row, tap (0, 0), channels 0-3 of the chunk, hi image.
+    const uint32_t pa = base + b * P::kPatch + wg * R * kPW * 16;
+#pragma unroll 1
+    for (int tap = 0; tap < 8; ++tap, ++step) {
+      issue_tap32<P>(part, pa, base, step, tap, wfull);
+      wgmma_wait<1>();          // the previous tap's wgmmas are done: release its stage
+      if (tap > 0 && lane == 0) mbar_arrive(wempty + 8 * ((step - 1) % kStages32));
+    }
+    issue_tap32<P>(part, pa, base, step, 8, wfull);
+    wgmma_wait<0>();            // the chunk is done: release its stages and patch, add it up
+    if (lane == 0) {
+      mbar_arrive(wempty + 8 * ((step - 1) % kStages32));
+      mbar_arrive(wempty + 8 * (step % kStages32));
+      mbar_arrive(pempty + 8 * b);
+    }
+    ++step;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      fence_acc(part[r]);
+#pragma unroll
+      for (int i = 0; i < P::kN2; ++i) acc[r][i] += part[r][i];
+    }
+  }
+
+  // Epilogue: fp32 bias, staged [row][channel][64 pixels] per warpgroup in
+  // the patch buffers and the ring (every copy has landed and been read).
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+  float* st = reinterpret_cast<float*>(smem + wg * P::kStaging);
+#pragma unroll
+  for (int nt = 0; nt < BN / 8; ++nt) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int fl = nt * 8 + 2 * (lane & 3) + j;
+      const float bf = (bias != nullptr && n0 + fl < g.F) ? bias[n0 + fl] : 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          st[(r * BN + fl) * kStageLd32 + w4 * 16 + (lane >> 2) + 8 * i] = acc[r][nt * 4 + 2 * i + j] + bf;
+      }
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+  // Each warp stores whole 64-pixel rows of one channel: 32 x 2 pixels where
+  // W and the strides keep pairs 8-byte aligned, else 2 x 32 single pixels.
+  float* ob = out + (img / g.n_inner) * g.oso + (img % g.n_inner) * g.osi;
+  const bool pairs = ((g.W | g.osc) & 1) == 0 && (reinterpret_cast<uintptr_t>(ob) & 7) == 0;
+  for (int row = w4; row < R * BN; row += 4) {
+    const int r = row / BN, f = n0 + row % BN, y = y0 + wg * R + r;
+    if (f >= g.F || y >= g.H) continue;
+    float* orow = ob + f * g.osc + (long long)y * g.W + x0;
+    const float* srow = st + row * kStageLd32;
+    if (pairs) {
+      if (x0 + 2 * lane < g.W)
+        *reinterpret_cast<float2*>(orow + 2 * lane) = *reinterpret_cast<const float2*>(srow + 2 * lane);
+    } else {
+      if (x0 + lane < g.W) orow[lane] = srow[lane];
+      if (x0 + 32 + lane < g.W) orow[32 + lane] = srow[32 + lane];
     }
   }
 }
@@ -550,16 +774,34 @@ cudaError_t launch_bf16(const void* x, const void* wp, const void* bias, void* o
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t launch_fp32(const void* x, const void* wp, const void* bias, void* out, Geometry g,
+                        int images, int* launched, cudaStream_t s) {
+  using P = Plan32<BN>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_fp32_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (attr != cudaSuccess) return attr;
+  g.tiles_x = (g.W + kMW - 1) / kMW;
+  const long long tiles = (long long)g.tiles_x * ((g.H + P::kRows - 1) / P::kRows);
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  dim3 grid(g.Fp / BN, (unsigned)tiles, images);
+  report(launched, grid, P::kRows, kMW, BN);
+  conv3x3_fp32_kernel<BN><<<grid, kBThreads, P::kSmem, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wp), static_cast<const float*>(bias),
+      static_cast<float*>(out), g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, out: the input and output with the strides above (elements); wp: the
 // weight packed by pack_conv3x3_weight in x's type -- bf16: (Fp / pack_n,
-// Cp / 64, 9, pack_n, 64) swizzled tiles, Cp a multiple of 64, pack_n 64 or
-// 128; fp32: (9, Fp, Cp), Fp a multiple of 128, Cp of 16 -- zero-padded;
-// bias: fp32 (F,) or null. bf16 only: a block is pack_n output channels by
-// 2 * rows output rows (rows 1 or 2) by 64 columns. launched: 6 ints, set
-// to the grid and block tile of the launch (see report). Returns the
-// launch's CUDA error.
+// Cp / 64, 9, pack_n, 64) swizzled tiles, Cp a multiple of 64; fp32:
+// (Fp / pack_n, Cp / 16, 9, 2, 4, pack_n, 4) hi and lo tiles, Cp a multiple
+// of 16 -- pack_n 64 or 128, zero-padded; bias: fp32 (F,) or null. A block is
+// pack_n output channels by 2 * rows output rows by 64 columns: bf16 rows 1
+// or 2, fp32 rows = 128 / pack_n. launched: 6 ints, set to the grid and
+// block tile of the launch (see report). Returns the launch's CUDA error.
 extern "C" int fs_conv3x3(const void* x, const void* wp, const void* bias, void* out,
                           int n_outer, int n_inner, long long xso, long long xsi, long long xsc,
                           long long oso, long long osi, long long osc, int C, int H, int W, int F,
@@ -572,14 +814,11 @@ extern "C" int fs_conv3x3(const void* x, const void* wp, const void* bias, void*
   Geometry g{n_inner, xso, xsi, xsc, oso, osi, osc, C, H, W, F, Cp, Fp, 0, vec};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) {
-    if (Fp % 128 || Cp % 16) return (int)cudaErrorInvalidValue;
-    g.tiles_x = (W + kTW - 1) / kTW;
-    dim3 grid((unsigned)(g.tiles_x * ((H + kTH - 1) / kTH)), Fp / kFBN, images);
-    report(launched, grid, kTH, kTW, kFBN);
-    conv3x3_fp32_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(wp),
-        static_cast<const float*>(bias), static_cast<float*>(out), g);
-    return (int)cudaGetLastError();
+    if (Cp % kKC32 || (pack_n != 64 && pack_n != 128) || Fp % pack_n || rows != 128 / pack_n)
+      return (int)cudaErrorInvalidValue;
+    g.vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 && ((W | xsc | xso | xsi) & 3) == 0;
+    return (int)(pack_n == 128 ? launch_fp32<128>(x, wp, bias, out, g, images, launched, s)
+                               : launch_fp32<64>(x, wp, bias, out, g, images, launched, s));
   }
   if (Cp % kKC || (pack_n != 64 && pack_n != 128) || Fp % pack_n || (rows != 1 && rows != 2))
     return (int)cudaErrorInvalidValue;

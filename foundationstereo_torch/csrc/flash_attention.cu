@@ -61,16 +61,34 @@
 //   warpgroup's Q buffer and stored as whole 16-byte pieces of 128-byte rows;
 //   rows past N are not stored.
 //
-// fp32 (the model without mixed precision): the same online softmax on the
-// fp32 FMA units, with no rounding of q, k, v or the probabilities: one
-// thread per query row holds q and its accumulator in registers; K and V
-// tiles of 32 keys go through shared memory, where every thread of a warp
-// reads the same key (a broadcast).
+// fp32 (the model without mixed precision): the same warp-specialised plan
+// on TF32 wgmma in three passes (tf32x3.cuh), held to the fp32 tolerance.
+// Bound on the H100: 3 * 2.37e11 FLOP at the main shape, 1.44 ms at 494.7
+// TF/s. What changes for 4-byte elements:
+// - Every product operand is split into tf32 hi and lo and is K-major (TF32
+//   takes no transpose flag), so the producer warpgroup's 128 threads, not
+//   TMA, fill the ring: they load each 64-key tile of K and V from qkv in
+//   place, split it, and write K as [dim quad][key][4] and V transposed as
+//   [key quad][dim][4] (a tile's four images are 64 KB; 3 stages). Keys past
+//   N are written as zeros and masked.
+// - 2 consumer warpgroups of 64 query rows (128 per block): Q's hi stays in
+//   registers as the A fragments, its lo in shared memory. S = Q K^T is
+//   three passes of wgmma m64n64k8 (Q lo K hi, Q hi K lo, Q hi K hi).
+// - P is split in registers; its accumulator gives each 8-key group's keys
+//   to the A fragment in the order 0, 2, 4, 6, 1, 3, 5, 7, and V^T stores
+//   them in that order. A tile's P V (P lo V hi, P hi V lo, P hi V hi) goes
+//   into a fresh accumulator that one FFMA adds to the rescaled O (the
+//   tensor cores round toward zero; a sum over all N keys would drift).
+// - The softmax runs in the log2 domain on the scaled scores (any scale);
+//   the two consumer warpgroups overlap one's softmax with the other's
+//   products. Outputs are stored as fp32 pairs from the accumulators.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -427,91 +445,269 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap map, __nv_bfloat16* __restr
   }
 }
 
-constexpr int kBq32 = 128;  // query rows per block of the fp32 kernel (1 per thread)
-constexpr int kBk32 = 32;   // keys per tile of the fp32 kernel
+// fp32 kernel: the same plan on TF32 wgmma in three passes (tf32x3.cuh).
+constexpr int kConsumers32 = 2;                  // consumer warpgroups, 64 query rows each
+constexpr int kBq32 = 64 * kConsumers32;         // query rows per block
+constexpr int kBk32 = 64;                        // keys per K/V tile
+constexpr int kStages32 = 3;                     // K/V ring stages
+constexpr int kThreads32 = 128 * (kConsumers32 + 1);
+constexpr int kImage32 = kBk32 * kHd * 4;        // 16 KB: one tile's hi or lo image
+constexpr int kQlo32 = kConsumers32 * kImage32;  // Q's lo image per consumer
+constexpr int kStage32 = 4 * kImage32;           // K hi, K lo, V^T hi, V^T lo
+constexpr int kBars32 = kQlo32 + kStages32 * kStage32;
+constexpr int kSmem32 = kBars32 + 8 * 2 * kStages32 + 1024;
+// setmaxnreg moves registers within the block's launch allocation: 168 per
+// thread at __launch_bounds__(384, 1).
+constexpr int kProducerRegs32 = 104;
+constexpr int kConsumerRegs32 = 200;
+static_assert(kSmem32 <= 232448, "shared memory");
+static_assert(kConsumers32 * 128 * kConsumerRegs32 + 128 * kProducerRegs32 <= 168 * kThreads32, "registers");
 
-__global__ void __launch_bounds__(kBq32)
-flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int H,
-                     int HT, int h0, float scale_log2) {
-  __shared__ __align__(16) float ks[kBk32 * kHd];
-  __shared__ __align__(16) float vs[kBk32 * kHd];
+__global__ void __launch_bounds__(kThreads32, 1)
+flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N, int H, int HT, int h0,
+                     float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  // [Q lo per consumer][K/V ring][mbarriers]
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t ring = base + kQlo32;
+  const uint32_t full = base + kBars32, empty = full + 8 * kStages32;
 
-  const int b = blockIdx.y / H, h = blockIdx.y % H;  // h: the output head
-  const size_t tok = (size_t)3 * HT * kHd;
-  const float* qb = qkv + (size_t)b * N * tok + (size_t)(h0 + h) * kHd;
-  const float* kb = qb + (size_t)HT * kHd;
-  const float* vb = qb + (size_t)2 * HT * kHd;
-  const int row = blockIdx.x * kBq32 + threadIdx.x;
+  // Block L of the 1-D grid, as in the bf16 kernel: the last (ragged) query
+  // tile of each pair at the end of the grid.
+  const int T = (N + kBq32 - 1) / kBq32, pairs = gridDim.x / T;
+  const int L = blockIdx.x, nfull = pairs * (T - 1);
+  const int bh = L < nfull ? L / (T - 1) : L - nfull, qt = L < nfull ? L % (T - 1) : T - 1;
+  const int b = bh / H, h = bh % H;   // h: the output head
+  const int q0 = qt * kBq32;
+  const int active = min(kConsumers32, (N - q0 + 63) / 64);
+  const int nT = (N + kBk32 - 1) / kBk32;
+  const int wg = threadIdx.x >> 7;
+  const long long tok = 3LL * HT * kHd;
+  const float* qb = qkv + (long long)b * N * tok + (long long)(h0 + h) * kHd;
 
-  float q[kHd], o[kHd];
-#pragma unroll
-  for (int d = 0; d < kHd; d += 4) {
-    const float4 v4 = row < N ? *reinterpret_cast<const float4*>(qb + row * tok + d)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-    q[d] = v4.x, q[d + 1] = v4.y, q[d + 2] = v4.z, q[d + 3] = v4.w;
-    o[d] = o[d + 1] = o[d + 2] = o[d + 3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages32; ++s) {
+      mbar_init(full + 8 * s, 128);                // every producer thread
+      mbar_init(empty + 8 * s, 4 * active);        // one arrival per active consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float m = -INFINITY, l = 0.f;
+  __syncthreads();
 
-  for (int k0 = 0; k0 < N; k0 += kBk32) {
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = threadIdx.x; idx < kBk32 * kHd / 4; idx += kBq32) {
-      const int r = idx / (kHd / 4), c4 = (idx % (kHd / 4)) * 4;
-      const int key = k0 + r;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (key < N) {
-        kv = *reinterpret_cast<const float4*>(kb + key * tok + c4);
-        vv = *reinterpret_cast<const float4*>(vb + key * tok + c4);
+  if (wg == kConsumers32) {
+    // ---- producer warpgroup: loads each K and V tile, splits it and writes
+    // K [dim quad][key][4] and V^T [key quad][dim][4], hi and lo ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs32) : "memory");
+    const int tid = threadIdx.x & 127;
+    const float* kb = qb + (long long)HT * kHd;
+    const float* vb = qb + 2LL * HT * kHd;
+    // K: items (quad 2u + tid / 64, key tid % 64), u = 0..7. V: items (key
+    // quad q = tid / 16 + 8u, dim quad dq = tid % 16), u = 0..1.
+    const int kkey = tid & 63, kq = tid >> 6, dq = tid & 15, rot = (dq >> 1) & 3;
+    for (int j = 0; j < nT; ++j) {
+      const int k0 = j * kBk32, s = j % kStages32;
+      float4 kv[8], vv[2][4];
+      const bool kin = k0 + kkey < N;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        kv[u] = kin ? __ldg(reinterpret_cast<const float4*>(kb + (k0 + kkey) * tok + 4 * (kq + 2 * u)))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int q = (tid >> 4) + 8 * u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // Column e of quad q is key 8 (q / 2) + 2 e + q % 2 (see V^T below).
+          const int key = k0 + 8 * (q >> 1) + 2 * e + (q & 1);
+          vv[u][e] = key < N ? __ldg(reinterpret_cast<const float4*>(vb + key * tok + 4 * dq))
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
       }
-      *reinterpret_cast<float4*>(&ks[r * kHd + c4]) = kv;
-      *reinterpret_cast<float4*>(&vs[r * kHd + c4]) = vv;
-    }
-    __syncthreads();
-
-    float s[kBk32];
-    float mx = -INFINITY;
+      if (j >= kStages32) mbar_wait(empty + 8 * s, (j / kStages32 - 1) & 1);
+      unsigned char* st = smem + kQlo32 + s * kStage32;
 #pragma unroll
-    for (int j = 0; j < kBk32; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < kHd; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&ks[j * kHd + d]);
-        dot = fmaf(q[d], k4.x, dot);
-        dot = fmaf(q[d + 1], k4.y, dot);
-        dot = fmaf(q[d + 2], k4.z, dot);
-        dot = fmaf(q[d + 3], k4.w, dot);
+      for (int u = 0; u < 8; ++u) {
+        uint4 lo;
+        const uint4 hi = tf32x3::split4(kv[u], lo);
+        unsigned char* slot = st + (kq + 2 * u) * 1024 + kkey * 16;
+        *reinterpret_cast<uint4*>(slot) = hi;
+        *reinterpret_cast<uint4*>(slot + kImage32) = lo;
       }
-      s[j] = k0 + j < N ? dot * scale_log2 : -INFINITY;
-      mx = fmaxf(mx, s[j]);
-    }
-    // Key k0 < N is valid, so the new maximum is finite.
-    const float mn = fmaxf(m, mx), alpha = exp2f(m - mn);
-    l *= alpha;
+      // V^T: row d of key quad q holds, in column e, V[key 8 (q / 2) + 2 e +
+      // q % 2][d]: each 8-key group in the order 0, 2, 4, 6, 1, 3, 5, 7, the
+      // order in which P's accumulator gives its keys to the A fragment. A
+      // thread writes the 4 rows of its dim quad, rotated so that a
+      // quarter-warp's stores hit 8 bank groups.
 #pragma unroll
-    for (int d = 0; d < kHd; ++d) o[d] *= alpha;
+      for (int u = 0; u < 2; ++u) {
+        const int q = (tid >> 4) + 8 * u;
+        uint4 hi[4], lo[4];
 #pragma unroll
-    for (int j = 0; j < kBk32; ++j) {
-      const float p = exp2f(s[j] - mn);
-      l += p;
+        for (int r = 0; r < 4; ++r) {
+          const float4 col = r == 0 ? make_float4(vv[u][0].x, vv[u][1].x, vv[u][2].x, vv[u][3].x)
+                           : r == 1 ? make_float4(vv[u][0].y, vv[u][1].y, vv[u][2].y, vv[u][3].y)
+                           : r == 2 ? make_float4(vv[u][0].z, vv[u][1].z, vv[u][2].z, vv[u][3].z)
+                                    : make_float4(vv[u][0].w, vv[u][1].w, vv[u][2].w, vv[u][3].w);
+          hi[r] = tf32x3::split4(col, lo[r]);
+        }
+        tf32x3::rotate4(hi, rot);
+        tf32x3::rotate4(lo, rot);
+        unsigned char* vt = st + 2 * kImage32 + q * 1024;
 #pragma unroll
-      for (int d = 0; d < kHd; d += 4) {
-        const float4 v4 = *reinterpret_cast<const float4*>(&vs[j * kHd + d]);
-        o[d] = fmaf(p, v4.x, o[d]);
-        o[d + 1] = fmaf(p, v4.y, o[d + 1]);
-        o[d + 2] = fmaf(p, v4.z, o[d + 2]);
-        o[d + 3] = fmaf(p, v4.w, o[d + 3]);
+        for (int r = 0; r < 4; ++r) {
+          unsigned char* slot = vt + (4 * dq + ((r + rot) & 3)) * 16;
+          *reinterpret_cast<uint4*>(slot) = hi[r];
+          *reinterpret_cast<uint4*>(slot + kImage32) = lo[r];
+        }
       }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(full + 8 * s);
     }
-    m = mn;
+    return;
   }
 
-  if (row < N) {
-    const float inv = 1.f / l;
-    float* orow = out + ((size_t)(b * N + row) * H + h) * kHd;
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs32) : "memory");
+  if (wg >= active) return;
+  const int lane = threadIdx.x & 31, w4 = (threadIdx.x >> 5) & 3, t = lane & 3, g = lane >> 2;
+  const int qw = q0 + 64 * wg, row = 16 * w4 + g;   // rows row and row + 8 of the warpgroup
+  // Q: hi in registers as the A fragments of the 8 K steps, lo in shared
+  // memory [dim quad][row][4].
+  uint32_t qh[32];
+  const uint32_t qlo = base + wg * kImage32;
+  {
+    unsigned char* ql = smem + wg * kImage32;
 #pragma unroll
-    for (int d = 0; d < kHd; d += 4)
-      *reinterpret_cast<float4*>(orow + d) =
-          make_float4(o[d] * inv, o[d + 1] * inv, o[d + 2] * inv, o[d + 3] * inv);
+    for (int kk = 0; kk < kHd / 8; ++kk)
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int r = row + 8 * (a & 1), d = 8 * kk + t + 4 * (a >> 1);
+        const float v = qw + r < N ? __ldg(qb + (qw + r) * tok + d) : 0.f;
+        uint32_t lo;
+        tf32x3::split(v, qh[4 * kk + a], lo);
+        *reinterpret_cast<uint32_t*>(ql + (d >> 2) * 1024 + r * 16 + (d & 3) * 4) = lo;
+      }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  }
+  float o[32], ot[32], s[32], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  uint32_t ph[32], pl[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+
+  for (int j = 0; j < nT; ++j) {
+    const int st = j % kStages32;
+    // The first wgmma of S and of P V overwrites its accumulator: new values
+    // here end the old ones' lives (else the asm's read keeps them live).
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = ot[i] = 0.f;
+    mbar_wait(full + 8 * st, (j / kStages32) & 1);
+    const uint32_t khi = ring + st * kStage32, klo = khi + kImage32;
+    const uint32_t vhi = khi + 2 * kImage32, vlo = khi + 3 * kImage32;
+    // S = Q K^T: Q lo K hi, Q hi K lo, Q hi K hi.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHd / 8; ++kk)
+      tf32x3::mma(s, tf32x3::desc(qlo + kk * 2048, 1024, 128), tf32x3::desc(khi + kk * 2048, 1024, 128), kk);
+#pragma unroll
+    for (int kk = 0; kk < kHd / 8; ++kk)
+      tf32x3::mma(s, qh[4 * kk], qh[4 * kk + 1], qh[4 * kk + 2], qh[4 * kk + 3],
+                  tf32x3::desc(klo + kk * 2048, 1024, 128), 1);
+#pragma unroll
+    for (int kk = 0; kk < kHd / 8; ++kk)
+      tf32x3::mma(s, qh[4 * kk], qh[4 * kk + 1], qh[4 * kk + 2], qh[4 * kk + 3],
+                  tf32x3::desc(khi + kk * 2048, 1024, 128), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(qh);
+
+    // Online softmax in the log2 domain on the scaled scores (any sign of
+    // the scale); keys past N (the last tile only) to -inf.
+    const int key0 = j * kBk32;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      s[i] = key < N ? s[i] * scale_log2 : -INFINITY;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {     // rows g and g + 8 of the warp
+      float mx = m[i];
+#pragma unroll
+      for (int jj = 0; jj < kBk32 / 8; ++jj) mx = fmaxf(mx, fmaxf(s[4 * jj + 2 * i], s[4 * jj + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      // Key 0 of every tile is below N, so mx is finite; m starts at -inf.
+      alpha[i] = ex2(m[i] - mx);
+      m[i] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < kBk32 / 8; ++jj)
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float e = ex2(s[4 * jj + 2 * i + k] - mx);
+          s[4 * jj + 2 * i + k] = e;
+          sum += e;
+        }
+      l[i] = l[i] * alpha[i] + sum;   // this thread's part of the row sum
+    }
+    // P's A fragment of K step jj (keys 8 jj .. 8 jj + 7): a0 = (row g, key
+    // 2t), a1 = (row g + 8, key 2t), a2 = (row g, key 2t + 1), a3 = (row g +
+    // 8, key 2t + 1); the A fragment's column c is key 2c for c < 4 and
+    // 2(c - 4) + 1 above, which V^T's key order matches.
+#pragma unroll
+    for (int jj = 0; jj < kBk32 / 8; ++jj) {
+      tf32x3::split(s[4 * jj], ph[4 * jj], pl[4 * jj]);
+      tf32x3::split(s[4 * jj + 2], ph[4 * jj + 1], pl[4 * jj + 1]);
+      tf32x3::split(s[4 * jj + 1], ph[4 * jj + 2], pl[4 * jj + 2]);
+      tf32x3::split(s[4 * jj + 3], ph[4 * jj + 3], pl[4 * jj + 3]);
+    }
+    // This tile's P V into a fresh accumulator: P lo V hi, P hi V lo, P hi V hi.
+    wgmma_fence();
+#pragma unroll
+    for (int jj = 0; jj < kBk32 / 8; ++jj)
+      tf32x3::mma(ot, pl[4 * jj], pl[4 * jj + 1], pl[4 * jj + 2], pl[4 * jj + 3],
+                  tf32x3::desc(vhi + jj * 2048, 1024, 128), jj);
+#pragma unroll
+    for (int jj = 0; jj < kBk32 / 8; ++jj)
+      tf32x3::mma(ot, ph[4 * jj], ph[4 * jj + 1], ph[4 * jj + 2], ph[4 * jj + 3],
+                  tf32x3::desc(vlo + jj * 2048, 1024, 128), 1);
+#pragma unroll
+    for (int jj = 0; jj < kBk32 / 8; ++jj)
+      tf32x3::mma(ot, ph[4 * jj], ph[4 * jj + 1], ph[4 * jj + 2], ph[4 * jj + 3],
+                  tf32x3::desc(vhi + jj * 2048, 1024, 128), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(ot);
+    fence_regs(ph);
+    fence_regs(pl);
+    if (lane == 0) mbar_arrive(empty + 8 * st);
+    // The rescaled total plus the tile, rounded to nearest.
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = fmaf(o[i], alpha[(i >> 1) & 1], ot[i]);
+  }
+
+  // Epilogue: the full row sums, 1/l, fp32 pairs of columns per thread.
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float sum = l[i];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    inv[i] = 1.f / sum;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = qw + row + 8 * i;
+    if (r >= N) continue;
+    float* orow = out + ((long long)(b * N + r) * H + h) * kHd + 2 * t;
+#pragma unroll
+    for (int jj = 0; jj < kHd / 8; ++jj)
+      *reinterpret_cast<float2*>(orow + 8 * jj) =
+          make_float2(o[4 * jj + 2 * i] * inv[i], o[4 * jj + 2 * i + 1] * inv[i]);
   }
 }
 
@@ -561,11 +757,14 @@ extern "C" int fs_flash_attention(const void* qkv, void* out, int B, int N, int 
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!is_bf16) {
-    dim3 grid((N + kBq32 - 1) / kBq32, B * H);
-    report(launched, grid, kBq32, kBk32, kBq32);
-    flash_fwd_f32_kernel<<<grid, kBq32, 0, st>>>(static_cast<const float*>(qkv),
-                                                  static_cast<float*>(out), N, H, HT, h0,
-                                                  scale_log2);
+    const cudaError_t attr =
+        cudaFuncSetAttribute(flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem32);
+    if (attr != cudaSuccess) return (int)attr;
+    dim3 grid((N + kBq32 - 1) / kBq32 * B * H);
+    report(launched, grid, kBq32, kBk32, kThreads32);
+    flash_fwd_f32_kernel<<<grid, kThreads32, kSmem32, st>>>(static_cast<const float*>(qkv),
+                                                             static_cast<float*>(out), N, H, HT, h0,
+                                                             scale_log2);
     return (int)cudaGetLastError();
   }
   if (!(scale > 0.f)) return (int)cudaErrorInvalidValue;

@@ -113,7 +113,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
+    """The library's path, named by the hash of its source, the headers
+    beside it and the flags."""
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256((CSRC / source).read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
@@ -377,7 +380,8 @@ def flash_attention_plain(qkv: torch.Tensor, scale: float) -> torch.Tensor:
 
 def flash_attention(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     """Softmax attention from the packed projection qkv (B, N, 3, H, 64) ->
-    (B, N, H, 64) in qkv's dtype, bfloat16 (tensor cores) or float32."""
+    (B, N, H, 64) in qkv's dtype: bfloat16 products in one tensor-core pass,
+    float32 in three TF32 passes."""
     if not _on_cuda(qkv):
         return flash_attention_plain(qkv, scale)
     return _attention("flash_attention", qkv, scale, 0, qkv.shape[3])
@@ -391,14 +395,17 @@ def flash_attention_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int
     return _attention("flash_attention_heads", qkv, scale, h0, n_heads)
 
 
-# Query rows per block of the bf16 kernel: 3 consumer warpgroups of 64.
+# Query rows per block: 3 consumer warpgroups of 64 (bf16), 2 (fp32).
 FLASH_QUERY_ROWS = 192
+FLASH_QUERY_ROWS_FP32 = 128
 
 
-def flash_attention_blocks(n: int, pairs: int) -> int:
-    """The bf16 kernel's grid size for N tokens of ``pairs`` (batch, head)
-    pairs: query tiles of ``FLASH_QUERY_ROWS`` rows x pairs."""
-    return -(-n // FLASH_QUERY_ROWS) * pairs
+def flash_attention_blocks(n: int, pairs: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The kernel's grid size for N tokens of ``pairs`` (batch, head) pairs:
+    query tiles of ``FLASH_QUERY_ROWS`` (bf16) or ``FLASH_QUERY_ROWS_FP32``
+    (fp32) rows x pairs."""
+    rows = FLASH_QUERY_ROWS if dtype == torch.bfloat16 else FLASH_QUERY_ROWS_FP32
+    return -(-n // rows) * pairs
 
 
 def _attention(name, qkv, scale, h0, n_heads):
@@ -442,44 +449,66 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return acc.to(x.dtype)
 
 
-def _pack_rows(f: int) -> int:
-    """Output channels per packed bf16 weight tile: 64 where F <= 64, else 128."""
-    return 64 if f <= 64 else 128
+def _pack_rows(f: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Output channels per packed weight tile: 64 where F <= 64, else 128;
+    float32 also 64 where 64-channel tiles pad F to fewer channels (F = 168:
+    192 against 256; on the H100 the fp32 hourglass conv ran 0.116 ms
+    against 0.160 with 128, ``tools/k4_timing.py``)."""
+    if f <= 64 or (dtype != torch.bfloat16 and -(-f // 64) * 64 < -(-f // 128) * 128):
+        return 64
+    return 128
 
 
 def _packed_shape(f: int, c: int, dtype: torch.dtype) -> tuple[int, ...]:
+    t = _pack_rows(f, dtype)
     if dtype == torch.bfloat16:
-        t = _pack_rows(f)
         return (-(-f // t), -(-c // 64), 9, t, 64)
-    return (9, -(-f // 128) * 128, -(-c // 16) * 16)
+    return (-(-f // t), -(-c // 16), 9, 2, 4, t, 4)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 x -> (hi, lo), fp32 tensors holding TF32 values: hi = tf32(x),
+    lo = tf32(x - hi), each rounded to nearest with ties away from zero
+    (``cvt.rna.tf32.f32``), by bit arithmetic on the int32 view."""
+    def rna(v):
+        return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(x.float())
+    return hi, rna(x.float() - hi)
 
 
 def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """(F, C, 3, 3) -> the kernel's weight layout in ``dtype``, zero-padded.
-    Callers cache it (a parameter is packed once).
+    Callers cache it (a parameter is packed once). T = ``_pack_rows(F,
+    dtype)`` output channels per tile (64 or 128); Fp is F padded to a
+    multiple of T.
 
-    bfloat16 (the wgmma kernel): (Fp / T, Cp / 64, 9, T, 64) with T = 64
-    where F <= 64, else 128; Fp and Cp are F and C padded to multiples of T
-    and 64. Entry [m, k, tap] is the tile of output channels m*T..m*T+T-1,
+    bfloat16: (Fp / T, Cp / 64, 9, T, 64), Cp = C padded to a multiple of
+    64. Entry [m, k, tap] is the tile of output channels m*T..m*T+T-1,
     input channels k*64..k*64+63 and tap dy*3+dx, contiguous (16 KB at T =
     128), in the exact shared-memory image wgmma's B descriptor reads:
     K-major (row n holds the tile's 64 input channels, 128 bytes) with the
     128-byte swizzle (the 16-byte group of channels 8q..8q+7 of row n sits at
     group position q ^ (n % 8)).
 
-    float32 (the FMA kernel): (9, Fp, Cp), taps major, input channels
-    contiguous, Fp % 128 == 0 and Cp % 16 == 0.
+    float32: (Fp / T, Cp / 16, 9, 2, 4, T, 4), Cp = C padded to a multiple of
+    16. Entry [m, k, tap, h] is the (chunk, tap) tile's hi (h = 0) or lo (h =
+    1) part (``tf32_split``) as the B descriptor of the three-pass TF32 wgmma
+    reads it, K-major without swizzle: [4-channel group q][row n][4
+    channels], element [q, n, e] the weight of output channel m*T + n and
+    input channel k*16 + 4q + e; hi and lo together (16 KB at T = 128) are
+    one bulk copy.
     """
     f, c = weight.shape[:2]
     shape = _packed_shape(f, c, dtype)
-    w = weight.detach().to(dtype)
+    nf, nc, t = shape[0], shape[1], _pack_rows(f, dtype)
+    kc = 64 if dtype == torch.bfloat16 else 16
+    padded = torch.zeros((nf * t, nc * kc, 3, 3), device=weight.device, dtype=dtype)
+    padded[:f, :c] = weight.detach().to(dtype)
     if dtype != torch.bfloat16:
-        packed = torch.zeros(shape, device=weight.device, dtype=dtype)
-        packed[:, :f, :c] = w.permute(2, 3, 0, 1).reshape(9, f, c)
-        return packed
-    nf, nc, _, t, _ = shape
-    padded = torch.zeros((nf * t, nc * 64, 3, 3), device=weight.device, dtype=dtype)
-    padded[:f, :c] = w
+        # (Fp/T, T, Cp/16, 4 groups, 4, 9 taps) -> (Fp/T, Cp/16, 9, 4 groups, T, 4)
+        tiles = padded.reshape(nf, t, nc, 4, 4, 9).permute(0, 2, 5, 3, 1, 4)
+        return torch.stack(tf32_split(tiles), dim=3).contiguous()
     # (Fp/T, T, Cp/64, 8 groups, 8, 9 taps) -> (Fp/T, Cp/64, 9, T, 8 groups, 8)
     tiles = padded.reshape(nf, t, nc, 8, 8, 9).permute(0, 2, 5, 1, 3, 4)
     n = torch.arange(t, device=weight.device)[:, None]
@@ -487,18 +516,25 @@ def pack_conv3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tenso
     return tiles[:, :, :, n, q ^ (n % 8)].reshape(shape).contiguous()
 
 
-def conv3x3_rows(f: int, h: int, w: int, images: int, sms: int) -> int:
-    """R, the output rows per consumer warpgroup of the bf16 kernel (a block
-    is 2R rows x 64 columns x BN output channels, BN the packed tile's rows),
-    for F output channels of ``images`` HxW images on a card with ``sms`` SMs
-    (one block per SM at a time): the R with the fewer waves x (BN x R + 96),
-    a wave's time in units of one 64-pixel row of one channel plus a block's
+def conv3x3_rows(f: int, h: int, w: int, images: int, sms: int,
+                 dtype: torch.dtype = torch.bfloat16) -> int:
+    """R, the output rows per consumer warpgroup (a block is 2R rows x 64
+    columns x BN output channels, BN the packed tile's rows), for F output
+    channels of ``images`` HxW images on a card with ``sms`` SMs (one block
+    per SM at a time).
+
+    float32: R = 128 / BN, fixed: a warpgroup's total and partial
+    accumulators (64 pixels x 128 channels, 128 registers) fill its
+    registers. bfloat16: the R with the fewer waves x (BN x R + 96), a
+    wave's time in units of one 64-pixel row of one channel plus a block's
     fixed cost (the first patch load, the pipeline's fill, the epilogue).
     The 96 is fitted to the card: R = 2 won at 92x160 (3 waves against 5)
     and R = 1 at 13 x 23x40 (3 against 2); ``tools/k4_timing.py`` times
     both R at the main path's shapes. Ties go to R = 2, which reads fewer
     bytes per FLOP."""
-    bn = _pack_rows(f)
+    bn = _pack_rows(f, dtype)
+    if dtype != torch.bfloat16:
+        return 128 // bn
 
     def cost(rows):
         return -(-conv3x3_blocks(f, h, w, images, rows) // sms) * (bn * rows + 96)
@@ -506,10 +542,11 @@ def conv3x3_rows(f: int, h: int, w: int, images: int, sms: int) -> int:
     return 2 if cost(2) <= cost(1) else 1
 
 
-def conv3x3_blocks(f: int, h: int, w: int, images: int, rows: int) -> int:
-    """The bf16 kernel's grid size: N blocks x pixel tiles (2R rows x 64
-    columns) x images."""
-    return -(-f // _pack_rows(f)) * -(-h // (2 * rows)) * -(-w // 64) * images
+def conv3x3_blocks(f: int, h: int, w: int, images: int, rows: int,
+                   dtype: torch.dtype = torch.bfloat16) -> int:
+    """The kernel's grid size: N blocks x pixel tiles (2R rows x 64 columns)
+    x images."""
+    return -(-f // _pack_rows(f, dtype)) * -(-h // (2 * rows)) * -(-w // 64) * images
 
 
 _sms: dict = {}
@@ -531,8 +568,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
     added in fp32 before the one rounding. Returns (N, F, H, W) or (B, F, D,
     H, W) in x's dtype, float32 or bfloat16. ``packed`` is
     ``pack_conv3x3_weight(weight, x.dtype)``, made here when not given.
-    bfloat16 runs the wgmma kernel with the rows ``conv3x3_rows`` picks for
-    the shape and the card; float32 the FMA kernel.
+    Both types run a wgmma kernel with the rows ``conv3x3_rows`` picks:
+    bfloat16 products in one pass, float32 in three TF32 passes.
     """
     if not _on_cuda(x, weight):
         return conv3x3_plain(x, weight, bias)
@@ -562,13 +599,9 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
         _require(bias.shape == (f,) and bias.device == x.device, f"bias {tuple(bias.shape)}")
         bias = bias.float().contiguous()
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        pack_n = packed.shape[3]
-        fp, cp = packed.shape[0] * pack_n, packed.shape[1] * 64
-        rows = conv3x3_rows(f, h, w, n_outer * n_inner, _sm_count(x.device))
-    else:
-        pack_n, rows = 0, 0
-        fp, cp = packed.shape[1], packed.shape[2]
+    pack_n = packed.shape[3] if bf16 else packed.shape[5]
+    fp, cp = packed.shape[0] * pack_n, packed.shape[1] * (64 if bf16 else 16)
+    rows = conv3x3_rows(f, h, w, n_outer * n_inner, _sm_count(x.device), x.dtype)
     launched = (ctypes.c_int * 6)()
     _launch("conv3x3", "conv3x3", x.device,
             x.data_ptr(), packed.data_ptr(), 0 if bias is None else bias.data_ptr(), out.data_ptr(),

@@ -127,6 +127,41 @@ def test_packed_bf16_weight_inverts_bit_for_bit(c, f):
     assert not back[f:].any() and not back[:, c:].any()
 
 
+def _unpack_fp32(packed: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """A plain inverse of the fp32 packed layout, from its definition: the hi
+    (h = 0) and lo (h = 1) parts of entry (f, c, tap) of the (Fp, Cp, 9)
+    weight sit in tile [f // T, c // 16, tap, h] at group q = (c % 16) // 4,
+    row n = f % T, element c % 4. Returns the bits (int32) of hi and lo."""
+    nf, nc, taps, two, groups, t, k = packed.shape
+    assert (taps, two, groups, k) == (9, 2, 4, 4) and t in (64, 128)
+    bits = packed.view(torch.int32).numpy()
+    f = np.arange(nf * t)[:, None, None]
+    c = np.arange(nc * 16)[None, :, None]
+    tap = np.arange(9)[None, None, :]
+    return tuple(bits[f // t, c // 16, tap, h, (c % 16) // 4, f % t, c % 4] for h in (0, 1))
+
+
+@pytest.mark.parametrize("f", [64, 127, 168, 256])
+@pytest.mark.parametrize("c", [16, 168, 512])
+def test_packed_fp32_weight_inverts_bit_for_bit(c, f):
+    """The three-pass TF32 kernel's weight tiles: T = 64 where F <= 64 or
+    64-channel tiles pad F less (168), else 128; C padded to a multiple of
+    16 and F to one of T, with zeros; hi and lo are ``kernels.tf32_split``
+    of the fp32 weight."""
+    g = torch.Generator().manual_seed(c + f)
+    w = torch.randn(f, c, 3, 3, generator=g)
+    packed = kernels.pack_conv3x3_weight(w, torch.float32)
+    t = 64 if f in (64, 168) else 128
+    fp, cp = -(-f // t) * t, -(-c // 16) * 16
+    assert packed.shape == (fp // t, cp // 16, 9, 2, 4, t, 4) and packed.dtype == torch.float32
+    assert packed.is_contiguous()
+    hi, lo = _unpack_fp32(packed)                                   # (Fp, Cp, 9) each
+    want_hi, want_lo = (p.reshape(f, c, 9).view(torch.int32).numpy() for p in kernels.tf32_split(w))
+    assert np.array_equal(hi[:f, :c], want_hi) and np.array_equal(lo[:f, :c], want_lo)
+    for part in (hi, lo):
+        assert not part[f:].any() and not part[:, c:].any()
+
+
 @pytest.mark.parametrize("f,h,w,images,rows", [
     (512, 184, 320, 1, 2),      # gru04: 920 blocks of 4 rows, 7 waves (14 of 2 rows)
     (512, 92, 160, 1, 2),       # gru08: 3 waves of 4 rows beat 5 of 2

@@ -5,7 +5,9 @@ JAX, so it runs on the card's machine, which has none:
 
     python -m pytest tests/test_torch_gpu.py -q -o addopts="" --noconftest
 
-Tolerances: fp32 outputs 1e-5 (summation order); bf16 outputs 2^-8, one
+Tolerances: fp32 outputs 1e-5 (summation order; the fp32 attention and
+3x3 conv kernels take their products in three TF32 passes, ~2^-21 of each
+product, see ``test_torch_tf32x3.py``); bf16 outputs 2^-8, one
 bf16 ulp at the largest magnitude (inputs in [-1, 1]); bf16 attention
 against the fp32 twin: max error 2 bf16 ulps of max |ref|, mean error 1 bf16
 ulp of mean |ref| (output rounding and bf16 probabilities in P @ V). The 3x3
@@ -242,6 +244,34 @@ def test_flash_attention_kernel_fp32(cuda):
     torch.testing.assert_close(out, kernels.flash_attention_plain(qkv, 0.125), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_attention_kernel_fp32_at_every_tile_edge(cuda, b):
+    """fp32 at N on each side of the 64-key tile and the 128-row query tile
+    (2 consumer warpgroups of 64): keys past N are written as zeros and
+    masked, rows past N not stored; at 65 and 129 rows the tail block's
+    second warpgroup exits at once. The grid launched is the helper's."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for n in (1, 63, 64, 65, 127, 128, 129, 1100):
+        qkv = torch.randn(b, n, 3, 3, 64, device=cuda, generator=g)
+        out = kernels.flash_attention(qkv, 0.125)
+        assert kernels.FLASH_ATTENTION_LAUNCHED == dict(
+            grid=(kernels.flash_attention_blocks(n, b * 3, torch.float32), 1, 1), tile=(128, 64, 384))
+        torch.testing.assert_close(out, kernels.flash_attention_plain(qkv, 0.125), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [1100, 129])
+def test_fp32_head_offsets_stitch_bit_for_bit(cuda, n):
+    """fp32 head shards equal the single launch bit for bit, and a negative
+    scale (the fp32 kernel takes any) matches the twin."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    qkv = torch.randn(2, n, 3, 8, 64, device=cuda, generator=g)
+    whole = kernels.flash_attention(qkv, 0.125)
+    for h0 in (0, 2, 6):
+        assert torch.equal(kernels.flash_attention_heads(qkv, 0.125, h0, 2), whole[:, :, h0:h0 + 2])
+    torch.testing.assert_close(kernels.flash_attention(qkv, -0.125),
+                               kernels.flash_attention_plain(qkv, -0.125), rtol=0, atol=1e-5)
+
+
 def test_vit_attention_fp32_config_runs_the_kernel(cuda):
     """Without mixed precision the ViT's attention over N > 1024 tokens runs
     the fp32 kernel on the card, not the dense twin."""
@@ -321,6 +351,25 @@ def test_conv3x3_kernel_every_tile(cuda, monkeypatch, f, rows, w):
     bn = 64 if f <= 64 else 128
     assert kernels.CONV3X3_LAUNCHED == dict(
         grid=(-(-f // bn), -(-7 // (2 * rows)) * -(-w // 64), 2 * vol.shape[2]),
+        tile=(2 * rows, 64, bn))
+    want = torch.stack([kernels.conv3x3_plain(vol[:, :, d], wt, bias)
+                        for d in range(vol.shape[2])], dim=2)
+    _assert_conv_close(out, want)
+
+
+@pytest.mark.parametrize("bn", [128, 64])
+@pytest.mark.parametrize("w", [45, 48])
+def test_conv3x3_fp32_kernel_every_tile(cuda, monkeypatch, bn, w):
+    """Each fp32 tile (128 output channels by 2 rows, 64 by 4: the rows are
+    128 / BN) at ragged C, F and H, with 4-byte (W = 45) and 16-byte (W =
+    48) input loads, on the 5D volume read in place."""
+    monkeypatch.setattr(kernels, "_pack_rows", lambda *args: bn)
+    x, wt, bias = _conv_inputs(cuda, 21, 200, 127, (3, 7, w), torch.float32)
+    vol = x[:, :, ::2]
+    out = kernels.conv3x3(vol, wt, bias)
+    rows = 128 // bn
+    assert kernels.CONV3X3_LAUNCHED == dict(
+        grid=(-(-127 // bn), -(-7 // (2 * rows)) * -(-w // 64), 2 * vol.shape[2]),
         tile=(2 * rows, 64, bn))
     want = torch.stack([kernels.conv3x3_plain(vol[:, :, d], wt, bias)
                         for d in range(vol.shape[2])], dim=2)

@@ -5,14 +5,18 @@ main path's shapes on one card.
 
 After the card's name, power limit and SM clock it prints, for K3 (2 views
 x 16 heads of 64 over 5377 tokens) and for each of the four 4-head shards
-of K3s (the mesh phase's shards):
+of K3s (the mesh phase's shards), in bf16 and then in fp32 (the same
+values):
 
-- ``kernel``: the bf16 kernel (192 query rows per block, 3 consumer
-  warpgroups) held against the fp32 dense twin (``chip_smoke.py``'s
-  tolerance) and timed with ``chip_smoke.cuda_ms`` (launches queued behind a
-  device sleep: device time), with the grid it launched, its waves and TF/s;
-- ``sdpa``: ``F.scaled_dot_product_attention`` on the same heads, the
-  library call the port never makes, timed the same way;
+- ``kernel``: the kernel (bf16: 192 query rows per block, 3 consumer
+  warpgroups; fp32: 128 rows, 2 consumer warpgroups, three TF32 passes)
+  held against the fp32 dense twin (``chip_smoke.py``'s tolerances: bf16
+  ulps, or 1e-5 for fp32) and timed with ``chip_smoke.cuda_ms`` (launches
+  queued behind a device sleep: device time), with the grid it launched,
+  its waves and TF/s, beside its bound (fp32: the three-pass TF32 one);
+- ``sdpa``: ``F.scaled_dot_product_attention`` on the same heads in the
+  same type (TF32 off), the library call the port never makes, timed the
+  same way;
 - with ``--against DIR``, ``turn``: the wrapper of the checkout at DIR (its
   own ``foundationstereo_torch/ops/kernels.py`` and kernel sources) and this
   tree's, in turns (DIR, this, this, DIR).
@@ -60,45 +64,58 @@ def main() -> int:
     print(f"{sms} SMs, SM clock {clock} MHz", flush=True)
     other = load_kernels(args.against) if args.against else None
     gen = torch.Generator(device=dev).manual_seed(0)
-    qkv = torch.randn(B, N, 3, HEADS, HD, device=dev, generator=gen).bfloat16()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv16 = torch.randn(B, N, 3, HEADS, HD, device=dev, generator=gen).bfloat16()
     scale = 1.0 / math.sqrt(HD)
     failed = []
     cases = [("K3", 0, HEADS)] + [(f"K3s shard {j}", j * SHARD_HEADS, SHARD_HEADS)
                                   for j in range(chip_smoke.MESH_SHARDS)]
-    for name, h0, heads in cases:
+    qkv32 = qkv16.float()
+    for qkv, name, h0, heads in ([(qkv16, *c) for c in cases]
+                                 + [(qkv32, f"{c[0]} fp32", *c[1:]) for c in cases]):
         part = qkv[:, :, :, h0:h0 + heads]
         ref = kernels.flash_attention_plain(part.float(), scale)
         flop = 4.0 * B * heads * N * N * HD
-        b_ms, b_by, exp_ms = chip_smoke.attention_bound((part.numel() + ref.numel()) * 2, flop,
-                                                        B * heads * N * N, sms, clock)
-        print(f"case {name}: heads [{h0}, {h0 + heads}), bound {b_ms:.4f} ms ({b_by}), "
-              f"exp {exp_ms:.4f} ms (16 ex2 / SM / clock)", flush=True)
+        nbytes = (part.numel() + ref.numel()) * part.element_size()
+        if qkv.dtype == torch.bfloat16:
+            b_ms, b_by, exp_ms = chip_smoke.attention_bound(nbytes, flop, B * heads * N * N, sms, clock)
+            print(f"case {name}: heads [{h0}, {h0 + heads}), bound {b_ms:.4f} ms ({b_by}), "
+                  f"exp {exp_ms:.4f} ms (16 ex2 / SM / clock)", flush=True)
+        else:
+            fma_ms, b_ms, b_by = chip_smoke.fp32_bounds(nbytes, flop)
+            print(f"case {name}: heads [{h0}, {h0 + heads}), three-pass TF32 bound {b_ms:.4f} ms "
+                  f"({b_by}), FMA bound {fma_ms:.4f} ms", flush=True)
 
         def call(mod):
             return mod.flash_attention_heads(qkv, scale, h0, heads)
 
+        def agrees(out):
+            if out.dtype == torch.bfloat16:
+                return chip_smoke.attention_errors(out, ref)[-1]
+            return float((out - ref).abs().max()) <= 1e-5
+
         out = call(kernels)
         torch.cuda.synchronize()
         grid = chip_smoke.attention_launched()
-        ok = chip_smoke.attention_errors(out, ref)[-1]
+        ok = agrees(out)
         ms = chip_smoke.cuda_ms(lambda: call(kernels), 10)
-        print(f"kernel {name:13s} {ms:9.4f} ms {flop / ms / 1e9:6.1f} TF/s  grid {grid['blocks']:5d} "
+        print(f"kernel {name:18s} {ms:9.4f} ms {flop / ms / 1e9:6.1f} TF/s  grid {grid['blocks']:5d} "
               f"({grid['tile']}; {grid['blocks'] / sms:.2f} waves)  {'ok' if ok else 'DISAGREES'}",
               flush=True)
         if not ok:
             failed.append(name)
         qs, ks, vs = (t.transpose(1, 2).contiguous() for t in part.unbind(2))
         sdpa_ms = chip_smoke.cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
-        print(f"sdpa {name:13s} {sdpa_ms:9.4f} ms {flop / sdpa_ms / 1e9:6.1f} TF/s", flush=True)
+        print(f"sdpa {name:18s} {sdpa_ms:9.4f} ms {flop / sdpa_ms / 1e9:6.1f} TF/s", flush=True)
         del qs, ks, vs
         if other is not None:
             for label, mod in (("against", other), ("this", kernels), ("this", kernels),
                                ("against", other)):
                 out = call(mod)
                 torch.cuda.synchronize()
-                ok = chip_smoke.attention_errors(out, ref)[-1]
+                ok = agrees(out)
                 ms = chip_smoke.cuda_ms(lambda: call(mod), 10)
-                print(f"turn {name:13s} {label:8s} {ms:9.4f} ms {flop / ms / 1e9:6.1f} TF/s  "
+                print(f"turn {name:18s} {label:8s} {ms:9.4f} ms {flop / ms / 1e9:6.1f} TF/s  "
                       f"{'ok' if ok else 'DISAGREES'}", flush=True)
                 if not ok:
                     failed.append(f"{name} {label}")

@@ -5,10 +5,11 @@
 For each case of ``chip_smoke.K4_CASES`` it prints, after the card's name
 and power limit:
 
-- ``tile``: every bf16 tile the kernel has (64 or 128 output channels by 2
-  or 4 output rows), the one the wrapper picks marked ``*``, each held
-  against the plain twin and timed with ``chip_smoke.cuda_ms`` (launches
-  queued behind a device sleep: device time), with the grid it launched;
+- ``tile``: every tile the kernel has -- bf16: 64 or 128 output channels by
+  2 or 4 output rows; fp32: 64 channels by 4 rows or 128 by 2 -- the one
+  the wrapper picks marked ``*``, each held against the plain twin and
+  timed with ``chip_smoke.cuda_ms`` (launches queued behind a device sleep:
+  device time), with the grid it launched;
 - with ``--against DIR``, ``turn``: the K4 wrapper of the checkout at DIR
   (its own ``foundationstereo_torch/ops/kernels.py`` and kernel sources)
   and this tree's, in turns (DIR, this, this, DIR), each timed both ways:
@@ -63,9 +64,9 @@ def load_kernels(checkout: Path):
 
 @contextlib.contextmanager
 def tile(kernels, bn: int, rows: int):
-    """The bf16 kernel forced to ``bn`` output channels by ``2 * rows`` rows."""
+    """The kernel forced to ``bn`` output channels by ``2 * rows`` rows."""
     saved = kernels._pack_rows, kernels.conv3x3_rows
-    kernels._pack_rows, kernels.conv3x3_rows = (lambda f: bn), (lambda *args: rows)
+    kernels._pack_rows, kernels.conv3x3_rows = (lambda *args: bn), (lambda *args: rows)
     try:
         yield
     finally:
@@ -111,22 +112,22 @@ def main() -> int:
         x, w, bias = chip_smoke._conv_case(dev, gen, c, f, spatial, dtype)
         ref = kernels.conv3x3_plain(x, w, bias)
         flop = 2.0 * 9 * c * f * x[0, 0].numel()
-        if dtype == torch.bfloat16:
-            h, wd = x.shape[-2:]
-            picked = (kernels._pack_rows(f),
-                      kernels.conv3x3_rows(f, h, wd, x.numel() // (c * h * wd), sms))
-            for bn in (64, 128):
-                for rows in (1, 2):
-                    with tile(kernels, bn, rows):
-                        ok, err, packed = held(kernels, x, w, bias, ref)
-                        grid = chip_smoke.k4_launched()
-                        ms = chip_smoke.cuda_ms(lambda: kernels.conv3x3(x, w, bias, packed), 10)
-                    mark = "*" if (bn, rows) == picked else " "
-                    print(f"tile {name:32s} {bn:3d} ch x {2 * rows} rows{mark} {ms:9.4f} ms "
-                          f"{flop / ms / 1e9:6.1f} TF/s  grid {grid['blocks']:5d}  max err {err:.3g} "
-                          f"{'ok' if ok else 'DISAGREES'}", flush=True)
-                    if not ok:
-                        failed.append(f"{name} tile {bn}x{rows}")
+        h, wd = x.shape[-2:]
+        picked = (kernels._pack_rows(f, dtype),
+                  kernels.conv3x3_rows(f, h, wd, x.numel() // (c * h * wd), sms, dtype))
+        tiles = ([(bn, rows) for bn in (64, 128) for rows in (1, 2)] if dtype == torch.bfloat16
+                 else [(64, 2), (128, 1)])
+        for bn, rows in tiles:
+            with tile(kernels, bn, rows):
+                ok, err, packed = held(kernels, x, w, bias, ref)
+                grid = chip_smoke.k4_launched()
+                ms = chip_smoke.cuda_ms(lambda: kernels.conv3x3(x, w, bias, packed), 10)
+            mark = "*" if (bn, rows) == picked else " "
+            print(f"tile {name:37s} {bn:3d} ch x {2 * rows} rows{mark} {ms:9.4f} ms "
+                  f"{flop / ms / 1e9:6.1f} TF/s  grid {grid['blocks']:5d}  max err {err:.3g} "
+                  f"{'ok' if ok else 'DISAGREES'}", flush=True)
+            if not ok:
+                failed.append(f"{name} tile {bn}x{rows}")
         if other is None:
             continue
         for label, mod in (("against", other), ("this", kernels), ("this", kernels),
@@ -134,7 +135,7 @@ def main() -> int:
             ok, err, packed = held(mod, x, w, bias, ref)
             queued = chip_smoke.cuda_ms(lambda: mod.conv3x3(x, w, bias, packed), 10)
             back_to_back = unqueued_ms(lambda: mod.conv3x3(x, w, bias, packed), 10)
-            print(f"turn {name:32s} {label:8s} queued {queued:9.4f} ms  unqueued "
+            print(f"turn {name:37s} {label:8s} queued {queued:9.4f} ms  unqueued "
                   f"{back_to_back:9.4f} ms  max err {err:.3g} {'ok' if ok else 'DISAGREES'}",
                   flush=True)
             if not ok:
