@@ -129,6 +129,13 @@ K4_OUTSIDE, K4_PER_ITER = 53, 16
 MESH_SHARDS = 4
 # ViT tokens at the main path: 736x1280 is resized to 784x1344 patches of 14.
 VIT_TOKENS = (784 // 14) * (1344 // 14) + 1
+# The train phase: the train CLI on configs/train/stereo_v1.json (ViT-L,
+# max_disp 192, 22 iterations, bf16, AdamW, EMA) over a dataset written
+# here; its 736x320 crops reach the ViT as 784x336, 1345 tokens
+# (7 x 192 + 1 query rows, 21 x 64 + 1 keys: one-row tails).
+TRAIN = dict(config="configs/train/stereo_v1.json", batch=2, steps=4, save_every=2,
+             resume_steps=2, pairs=8, pair_hw=(400, 800))
+TRAIN_VIT_TOKENS = (784 // 14) * (336 // 14) + 1
 # K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
 # dtype). Every tile path of either type is among them.
 _H4, _W4 = MAIN["height"] // 4, MAIN["width"] // 4
@@ -574,6 +581,54 @@ def check_attention(dev, gen) -> dict:
                 grid=grid, fp32_max_abs_err=err32, fp32_mean_abs_err=mean32, fp32_ms=fp32_ms,
                 fp32_bound_ms=fp32_bound_ms, fp32_tf32x3_bound_ms=fp32_tc_ms,
                 fp32_library_ms=fp32_library_ms, fp32_grid=grid32)
+
+
+def check_attention_train_shape(dev, gen) -> dict:
+    """K3 at the train phase's shape: both views of a batch of 2 through the
+    ViT, (4, 1345, 3, 16, 64) bf16, against the fp32 dense twin, with its
+    time, bound and SDPA's time. Its row's launches are the train phase's."""
+    import torch
+    import torch.nn.functional as F
+
+    from foundationstereo_torch.ops import kernels
+
+    B, N, Hh, hd = 2 * TRAIN["batch"], TRAIN_VIT_TOKENS, 16, 64
+    scale = 1.0 / math.sqrt(hd)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
+    out = kernels.flash_attention(qkv, scale)
+    grid = attention_launched()
+    ref = kernels.flash_attention_plain(qkv.float(), scale)
+    torch.cuda.synchronize()
+    err, tol_max, mean_err, tol_mean, ref_max, ref_mean, ok = attention_errors(out, ref)
+    # The rows of the last query tile and the last key, alone: the one-row tails.
+    tail_err = float((out[:, -1].float() - ref[:, -1]).abs().max())
+    del ref
+    log(f"[kernels] flash_attention bf16 at the training shape: B={B}, N={N}, max abs err {err:.3g} "
+        f"(tolerance {tol_max:.3g}), mean abs err {mean_err:.3g} (tolerance {tol_mean:.3g}), "
+        f"last query row max abs err {tail_err:.3g}; grid {grid['blocks']} blocks "
+        f"(expected {kernels.flash_attention_blocks(N, B * Hh)})")
+    check(ok and tail_err <= tol_max, "flash_attention disagrees at the training shape")
+    check(grid["blocks"] == kernels.flash_attention_blocks(N, B * Hh), f"grid {grid}")
+    ms = cuda_ms(lambda: kernels.flash_attention(qkv, scale), 10)
+    plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(qkv, scale), 3)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in qkv.unbind(2))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
+    nbytes = qkv.numel() * 2 + out.numel() * 2
+    flops = 4.0 * B * Hh * N * N * hd
+    b_ms, b_by, e_ms = attention_bound(nbytes, flops, B * Hh * N * N, sms, sm_clock_mhz())
+    log(f"[kernels] flash_attention bf16 at the training shape: {ms:.4g} ms, "
+        f"{flops / ms / 1e9:.4g} TF/s; bound {b_ms:.4g} ms ({b_by}), exp {e_ms:.4g} ms; plain "
+        f"{plain_ms:.4g} ms; SDPA {library_ms:.4g} ms")
+    return dict(name="flash_attention", route="cuda",
+                source="foundationstereo_torch/csrc/flash_attention.cu",
+                replaces="foundationstereo_tpu/models/dinov2.py:71", phase="train",
+                shape=f"qkv ({B}, {N}, 3, {Hh}, {hd}) bf16", max_abs_err=err,
+                max_rel_err=err / ref_max, mean_abs_err=mean_err, tail_row_max_abs_err=tail_err,
+                tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of mean |ref|, "
+                          "vs fp32 dense",
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=library_ms,
+                grid=grid)
 
 
 def _conv_case(dev, gen, c, f, spatial, dtype):
@@ -1401,10 +1456,298 @@ def profile_pair(model, pair) -> None:
     log(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training through the train CLI
+# ---------------------------------------------------------------------------
+
+
+def write_train_dataset(root, pairs: int, hw: tuple[int, int], seed: int = 0) -> None:
+    """A dataset in the training layout (left/rgb, right/rgb JPEGs, base-255
+    uint8 disparity PNGs): smooth random scenes, the right view the left
+    shifted by the disparity."""
+    import numpy as np
+    from PIL import Image
+
+    from foundationstereo_torch.utils.misc import depth_uint8_encoding
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    for sub in ("left/rgb", "right/rgb", "left/disparity"):
+        (root / sub).mkdir(parents=True)
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    for i in range(pairs):
+        coarse = rng.uniform(0, 255, (h // 16 + 2, w // 16 + 2, 3)).astype(np.float32)
+        left = np.asarray(Image.fromarray(coarse.astype(np.uint8)).resize((w, h), Image.BILINEAR),
+                          np.float32) + rng.normal(0, 8, (h, w, 3))
+        disp = 8 + 40 * (xs / w) + 10 * np.sin(ys / 37.0 + i)
+        src = np.clip(np.round(xs + disp).astype(np.int64), 0, w - 1)
+        right = left[ys.astype(np.int64), src]
+        Image.fromarray(np.clip(left, 0, 255).astype(np.uint8)).save(root / "left/rgb" / f"{i}.jpg")
+        Image.fromarray(np.clip(right, 0, 255).astype(np.uint8)).save(root / "right/rgb" / f"{i}.jpg")
+        Image.fromarray(depth_uint8_encoding(disp)).save(root / "left/disparity" / f"{i}.png")
+
+
+def _train_cli(ws, data, steps: int, checkpoint: str) -> None:
+    from foundationstereo_torch.train import cli
+
+    cli.main(["--config", TRAIN["config"], "--workspace", str(ws), "--device", "cuda",
+              "--num_iterations", str(steps), "--batch_size", str(TRAIN["batch"]),
+              "--save_every", str(TRAIN["save_every"]), "--log_every", "1",
+              "--checkpoint", checkpoint, "--override", f"data.datasets.0.path={data}"])
+
+
+def train_phase(dev, profile: bool = False) -> dict:
+    """The training path: the train CLI takes TRAIN["steps"] steps and saves,
+    resumes from ``latest`` for TRAIN["resume_steps"] more, and ``infer``
+    serves a 736x1280 pair from the EMA weights. Checks: finite metrics and
+    no skipped step, the frozen ViT bit for bit and a trainable tensor moved,
+    24 K3 launches per step and no other kernel; a non-finite batch skipped
+    with the parameters bit for bit; one step's loss and gradient norm
+    through K3 against the same step through its plain twin. Returns the
+    launches of the CLI's steps."""
+    import json as _json
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from foundationstereo_torch import native
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.inference.demo import infer
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.train.checkpoints import CheckpointManager
+
+    config = _json.loads(Path(TRAIN["config"]).read_text())
+    cfg = ModelConfig.from_dict(config["model"])
+    depth = VIT_CONFIGS[cfg.vit_size]["depth"]
+    steps = TRAIN["steps"] + TRAIN["resume_steps"]
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        write_train_dataset(tmp / "data", TRAIN["pairs"], TRAIN["pair_hw"])
+        check(native.available(), "the native data-path library did not build")
+        log(f"[train] dataset of {TRAIN['pairs']} pairs at {TRAIN['pair_hw']} written and the "
+            f"native library built in {time.perf_counter() - t0:.1f} s")
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        _train_cli(tmp / "ws", tmp / "data", TRAIN["steps"], "none")
+        first = dict(kernels.LAUNCHES)
+        _train_cli(tmp / "ws", tmp / "data", steps, "latest")
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        lines = [_json.loads(x) for x in (tmp / "ws" / "metrics.jsonl").read_text().splitlines()]
+        check([x["step"] for x in lines] == list(range(steps)), f"steps {[x['step'] for x in lines]}")
+        for x in lines:
+            check(all(math.isfinite(v) for v in x.values() if isinstance(v, float)),
+                  f"non-finite metric at step {x['step']}: {x}")
+            check(x["skipped_nonfinite"] == 0.0, f"step {x['step']} skipped")
+        secs = [x["t_dispatch"] for x in lines]
+        loop = [x["t_dispatch"] + x["t_get"] + x["t_data"] + x["t_fence"] for x in lines]
+        log(f"[train] {steps} steps ({TRAIN['steps']} + {TRAIN['resume_steps']} resumed) of batch "
+            f"{TRAIN['batch']} at {config['data']['image_sizes'][0]} (width, height), "
+            f"{cfg.vit_size}, max_disp {cfg.max_disp}, {cfg.train_iters} iterations, "
+            f"mixed_precision={cfg.mixed_precision}: loss {[round(x['loss'], 4) for x in lines]}, "
+            f"grad_norm {[round(x['grad_norm'], 4) for x in lines]}")
+        log(f"[train] seconds per step (the step up to its synchronisation): first "
+            f"{secs[0]:.4f}, first after the resume {secs[TRAIN['steps']]:.4f}, median of the "
+            f"others {statistics.median(secs[1:TRAIN['steps']] + secs[TRAIN['steps'] + 1:]):.4f}; "
+            f"whole loop per step (with the data wait and copy) median "
+            f"{statistics.median(loop[1:]):.4f}; peak memory {peak:.2f} GiB")
+        log(f"[train] launches: first run {first}, both runs {launches}")
+        want = dict.fromkeys(launches, 0)
+        want["flash_attention"] = depth * steps
+        check(launches == want, f"train launches {launches}, expected {want} ({depth} K3 per step)")
+
+        ckpt = CheckpointManager(tmp / "ws" / "checkpoints")
+        check(ckpt.latest_step() == steps, f"latest checkpoint {ckpt.latest_step()}")
+        trained, _ = ckpt.restore_inference("latest")
+        init = FoundationStereo(cfg, device=dev, seed=0).state_dict()
+        dino = [k for k in init if k.startswith("feature.dino.")]
+        check(all(torch.equal(trained[k].to(dev), init[k]) for k in dino),
+              "the frozen ViT moved")
+        key = "update_block.disp_head.conv.0.weight"
+        moved = float((trained[key].to(dev) - init[key]).abs().max())
+        check(moved > 0, f"{key} did not move")
+        log(f"[train] the frozen ViT's {len(dino)} tensors equal bit for bit after {steps} steps; "
+            f"{key} moved by up to {moved:.3g}")
+        del init, trained
+
+        ema, step = ckpt.restore_inference("latest", use_ema=True)
+        model = FoundationStereo(cfg, device=dev, seed=0)
+        model.load_state_dict(ema)
+        del ema
+        left, right = (a[0].astype(np.uint8) for a in make_pair(MAIN["height"], MAIN["width"], 400))
+        kernels.reset_launches()
+        out = infer(model, left, right, valid_iters=cfg.valid_iters, get_pc=False)
+        served = dict(kernels.LAUNCHES)
+        log(f"[train] infer on the EMA weights of step {step}: {MAIN['height']}x{MAIN['width']}, "
+            f"{cfg.valid_iters} iterations, network {out['seconds']['network']:.4f} s, disparity "
+            f"mean {float(np.mean(out['disp'])):.4g} px, launches {served}")
+        check(out["disp"].shape == left.shape[:2] and bool(np.isfinite(out["disp"]).all()),
+              "the EMA model's disparity is not finite or of the wrong shape")
+        check(served["cost_volume_parts"] == 1 and served["flash_attention"] == depth
+              and served["disparity_lookup"] == cfg.valid_iters, f"infer launches {served}")
+        del model
+        torch.cuda.empty_cache()
+        train_step_checks(dev, config, tmp / "data", profile)
+    return launches
+
+
+def train_step_checks(dev, config, data, profile: bool) -> None:
+    """On a fresh trainer state: one step's loss and gradient norm through K3
+    against the same step through the plain twin (the same weights, batch
+    and dropout masks); then a non-finite batch, skipped with every
+    parameter bit for bit."""
+    import copy
+
+    import torch
+
+    from foundationstereo_torch.models.dinov2 import Attention
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.train.cli import host_batch, to_device
+    from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
+    from foundationstereo_torch.train.trainer import Trainer
+
+    config = copy.deepcopy(config)
+    config["data"]["datasets"][0]["path"] = str(data)
+    pipe = StereoTrainDataLoaderPipeline(config["data"], TRAIN["batch"])
+    batch = to_device(host_batch(pipe.get(), config["loss"]), dev)
+    trainer = Trainer(config, seed=0, device=dev)
+    state = trainer.init_state()
+    attn = [m for m in state.model.modules() if isinstance(m, Attention)]
+
+    def loss_gnorm(use_kernel: bool):
+        for m in attn:
+            m.use_kernel = use_kernel
+        kernels.reset_launches()
+        loss, _ = trainer.loss_and_grads(state, batch)
+        grads = [p.grad for p in state.model.parameters() if p.grad is not None]
+        gnorm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        state.model.zero_grad(set_to_none=True)
+        return float(loss), gnorm, kernels.LAUNCHES["flash_attention"]
+
+    k3 = loss_gnorm(True)
+    twin = loss_gnorm(False)
+    twin2 = loss_gnorm(False)
+    for m in attn:
+        m.use_kernel = True
+    d_loss, d_g = abs(k3[0] - twin[0]) / abs(twin[0]), abs(k3[1] - twin[1]) / twin[1]
+    log(f"[train] one step through K3 ({k3[2]} launches) vs the plain twin ({twin[2]}): loss "
+        f"{k3[0]:.6g} vs {twin[0]:.6g} (relative {d_loss:.3g}), gradient norm {k3[1]:.6g} vs "
+        f"{twin[1]:.6g} (relative {d_g:.3g}); the twin run again: loss {twin2[0]:.6g}, "
+        f"gradient norm {twin2[1]:.6g} (tolerance: 2^-6 of the loss and 2^-4 of the gradient "
+        f"norm, a few bf16 ulps of the ViT's output carried through the bf16 network)")
+    check(k3[2] == len(attn) and twin[2] == 0, "K3 launches in the comparison")
+    check(d_loss <= 2 ** -6 and d_g <= 2 ** -4, "the step through K3 disagrees with the twin's")
+
+    if profile:
+        profile_train_step(trainer, state, batch)
+
+    bad = dict(batch)
+    bad["left"] = batch["left"].clone()
+    bad["left"][0, 0, 0, 0] = float("nan")
+    before = {k: p.detach().clone() for k, p in state.model.named_parameters()}
+    step0, count0 = state.step, state.optimizer.count
+    state, metrics = trainer.train_step(state, bad)
+    check(float(metrics["skipped_nonfinite"]) == 1.0, "the non-finite batch was not skipped")
+    check(all(torch.equal(p, before[k]) for k, p in state.model.named_parameters()),
+          "a skipped step moved the parameters")
+    check(state.step == step0 + 1 and state.optimizer.count == count0,
+          "a skipped step advanced the optimizer")
+    log(f"[train] a batch with a NaN pixel: skipped, loss {float(metrics['loss'])}, all "
+        f"{len(before)} parameter tensors equal bit for bit, the optimizer's count still {count0}")
+
+
+def profile_train_step(trainer, state, batch) -> None:
+    """The trainer's own step (``Trainer.train_step``) timed on the card's
+    clock: the forward per top-level module (CUDA events from forward hooks;
+    with checkpointing a region's recompute falls in the backward), the loss
+    and the backward up to the last gradient accumulated, and the update
+    after it; then the step under torch.profiler for the top device ops."""
+    import torch
+
+    model = state.model
+    spans: dict[str, list] = {}
+    marks: dict[str, object] = {}
+    forward = [False]     # the hooks time the forward, not the backward's recompute
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def root_pre(_m, _a):
+        marks["start"] = event()
+        forward[0] = True
+
+    def root_post(_m, _a, _o):
+        forward[0] = False
+        marks["forward"] = event()
+
+    def grad_accumulated(_p):
+        marks["backward"] = event()
+
+    def hooks(name):
+        def pre(_m, _a):
+            if forward[0]:
+                spans.setdefault(name, []).append([event(), None])
+
+        def post(_m, _a, _o):
+            if forward[0]:
+                spans[name][-1][1] = event()
+        return pre, post
+
+    def step():
+        trainer.train_step(state, batch)
+
+    step()                                          # warm
+    handles = [model.register_forward_pre_hook(root_pre), model.register_forward_hook(root_post)]
+    for name, child in model.named_children():
+        pre, post = hooks(name)
+        handles += [child.register_forward_pre_hook(pre), child.register_forward_hook(post)]
+    handles += [p.register_post_accumulate_grad_hook(grad_accumulated)
+                for p in model.parameters() if p.requires_grad]
+    step()
+    marks["end"] = event()
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    start = marks["start"]
+    total = start.elapsed_time(marks["end"])
+    fwd = start.elapsed_time(marks["forward"])
+    per = {f"forward: {n}": sum(a.elapsed_time(b) for a, b in e) for n, e in spans.items()}
+    per["forward: outside modules (cost volume, pyramids, lookups, glue)"] = fwd - sum(per.values())
+    per["loss and backward (with the checkpointed regions' recompute)"] = (
+        marks["forward"].elapsed_time(marks["backward"]))
+    per["update (norm, clip, AdamW, EMA)"] = marks["backward"].elapsed_time(marks["end"])
+    log(f"[profile] one train step (Trainer.train_step): {total:.2f} ms on the card's clock")
+    for n, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {n:70s} {ms:9.2f} ms  {100 * ms / total:5.1f} %")
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    k3 = [e for e in kern if "flash_fwd" in e.key]
+    log(f"[profile] a train step under the profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f} %); K3 {sum(e.self_device_time_total for e in k3) / 1e3:.3f} ms "
+        f"over {sum(e.count for e in k3)} launches")
+    log(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh",
-                    help="comma-separated subset of env,build,kernels,path,serve,demo,mesh")
+    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh,train",
+                    help="comma-separated subset of env,build,kernels,path,serve,demo,mesh,train")
     ap.add_argument("--profile", action="store_true",
                     help="time one more 736x1280 pair per module and under torch.profiler, for "
                          "the served configuration, the one with the 3x3 conv kernel and the "
@@ -1437,7 +1780,8 @@ def main() -> int:
     rows = []
     if "kernels" in phases:
         gen = torch.Generator(device=dev).manual_seed(0)
-        for fn in (check_cost_volume, check_lookup, check_attention, check_conv3x3):
+        for fn in (check_cost_volume, check_lookup, check_attention, check_attention_train_shape,
+                   check_conv3x3):
             rows.append(fn(dev, gen))
             torch.cuda.empty_cache()
     if "path" in phases:
@@ -1462,7 +1806,13 @@ def main() -> int:
         mesh_rows, mesh_launches = mesh_phase(dev, REQUESTS, args.profile)
         rows += mesh_rows
         log(f"[mesh] {time.perf_counter() - t0:.1f} s")
-    by_phase = {"demo": launches, "mesh": mesh_launches}
+    train_launches = {}
+    if "train" in phases:
+        t0 = time.perf_counter()
+        train_launches = train_phase(dev, args.profile)
+        log(f"[train] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    by_phase = {"demo": launches, "mesh": mesh_launches, "train": train_launches}
     for row in rows:
         row.setdefault("phase", "demo")
         row["launches"] = by_phase[row["phase"]].get(row["name"], 0)

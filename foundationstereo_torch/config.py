@@ -3,18 +3,24 @@
 The port's own copy of the JAX package's ``ModelConfig`` and ``VIT_CONFIGS``
 with the same field names, so the same JSON configs load into both.
 
+The training path's memory knobs act through ``torch.utils.checkpoint``
+(``models/layers.py:checkpointed``): ``remat_filter`` recomputes CorrStem,
+FeatureAtt, Hourglass and Classifier in the backward, ``remat_refine`` each
+refinement step, ``scan_upsample`` each step's upsampling head.
+
 Fields that select TPU-only code paths are accepted and have no effect here:
-``remat_filter``, ``remat_refine``, ``scan_upsample``, ``scan_upsample_chunk``
-(training-path memory knobs; the train-mode forward is not ported yet),
-``fused_lookup`` and ``gather_lookup`` (the port has one lookup kernel that
+``scan_upsample_chunk`` (the port applies the upsampling head once per
+iteration), ``fused_lookup`` and ``gather_lookup`` (the port has one lookup kernel that
 covers all levels in one launch with a direct gather, whatever these say),
 ``pallas_cost_volume`` and ``fused_cost_proj`` (the port always builds the
 cost volume as parts when ``use_pallas`` is set).
 
 ``use_pallas`` selects the hand-written CUDA kernels: on CUDA tensors the
 cost-volume build, the disparity lookup and the ViT flash attention run as
-kernels; with ``use_pallas=False`` the model runs the plain PyTorch forms
-everywhere (the counterpart of the JAX package's XLA forms).
+kernels (where gradients are taken, only the frozen ViT's attention: the
+others have no backward); with ``use_pallas=False`` the model runs the
+plain PyTorch forms everywhere (the counterpart of the JAX package's XLA
+forms).
 ``pallas_conv3x3`` (default off, as in the JAX package) adds the 3x3 conv
 kernel when ``use_pallas`` is set: every 3x3/s1/p1 conv with C >= 128 and
 F >= 64 runs through it, in bf16 or fp32 (the JAX package's rule and forms,
@@ -61,9 +67,12 @@ class ModelConfig:
     # kernel (bf16 or fp32) when use_pallas is set, its plain twin otherwise;
     # "chunked" the online softmax over key chunks; "dense" the dense form.
     vit_attention: str = "auto"
-    remat_filter: bool = True         # inert
-    remat_refine: bool = True         # inert
-    scan_upsample: bool = True        # inert
+    # Training: checkpoint (recompute in the backward) the cost-filter stack
+    # (CorrStem, FeatureAtt, Hourglass, Classifier), each refinement step,
+    # and each step's upsampling head.
+    remat_filter: bool = True
+    remat_refine: bool = True
+    scan_upsample: bool = True
     scan_upsample_chunk: int = 1      # inert
 
     @classmethod

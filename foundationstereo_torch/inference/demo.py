@@ -13,14 +13,16 @@ request of the demo on numpy images (optional ``--scale``, one pass or the
 cameras the depth and the point cloud with outlier removal), writing
 ``depth_meter.npy``, ``cloud.ply`` and ``cloud_denoise.ply``; ``main`` adds
 the image and ``vis.png`` I/O (PIL, imported only there) and builds the
-model. Weights are seeded random ones: loading a checkpoint waits for the
-port of ``train/checkpoints.py``.
+model: from a checkpoint directory of the port's trainer (``--ckpt_dir``,
+its ``config.json`` and latest step, ``--ema 1`` for the EMA weights), or
+with seeded random weights.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import json
 import logging
 import os
 import time
@@ -155,7 +157,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--intrinsic_file", default=None, type=str,
                     help="3x3 K row-major + baseline (pinhole) or baseline on line 2 (panorama)")
     ap.add_argument("--ckpt_dir", default=None, type=str,
-                    help="checkpoint directory (not supported yet: seeded random weights)")
+                    help="the train CLI's checkpoint directory (with config.json); seeded "
+                         "random weights if omitted")
     ap.add_argument("--out_dir", default=None, type=str)
     ap.add_argument("--camera_type", type=str, default="pinhole", choices=["pinhole", "panorama"])
     ap.add_argument("--scale", default=1.0, type=float)
@@ -169,15 +172,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--denoise_radius", type=float, default=0.03)
     ap.add_argument("--vit_size", type=str, default=None)
     ap.add_argument("--max_disp", type=int, default=None)
-    ap.add_argument("--ema", type=int, default=0,
-                    help="serve a checkpoint's EMA weights (not supported yet)")
+    ap.add_argument("--ema", type=int, default=0, help="serve the checkpoint's EMA weights")
     ap.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
-    if args.ckpt_dir or args.ema:
-        raise NotImplementedError(
-            "loading a checkpoint (--ckpt_dir, --ema) waits for the port of "
-            "train/checkpoints.py (ROADMAP.md, Queue A item 9)")
+    if args.ema and not args.ckpt_dir:
+        raise ValueError("--ema needs --ckpt_dir")
 
     assets = Path(__file__).resolve().parents[2] / "assets"
     if args.camera_type == "panorama":
@@ -195,9 +195,22 @@ def main(argv=None) -> dict:
     os.makedirs(args.out_dir, exist_ok=True)
 
     overrides = {k: v for k, v in (("vit_size", args.vit_size), ("max_disp", args.max_disp)) if v}
-    cfg = ModelConfig.from_dict({"vit_size": "vits", "max_disp": 192, **overrides})
+    base, sd = {"vit_size": "vits", "max_disp": 192}, None
+    if args.ckpt_dir:
+        from foundationstereo_torch.train.checkpoints import CheckpointManager
+
+        sd, step = CheckpointManager(args.ckpt_dir).restore_inference(
+            "latest", use_ema=bool(args.ema))
+        cfg_path = Path(args.ckpt_dir) / "config.json"
+        base = json.loads(cfg_path.read_text()).get("model", {}) if cfg_path.exists() else {}
+    cfg = ModelConfig.from_dict({**base, **overrides})
     model = FoundationStereo(cfg, device=resolve_device(args.device), seed=0)
-    log.info("no checkpoint: seeded random weights")
+    if sd is not None:
+        model.load_state_dict(sd)
+        log.info(f"restored checkpoint step {step} from {args.ckpt_dir}"
+                 f"{' (EMA weights)' if args.ema else ''}")
+    else:
+        log.info("no checkpoint: seeded random weights")
 
     img0, img1 = load_image(args.left_file), load_image(args.right_file)
     log.info(f"img0: {img0.shape}")

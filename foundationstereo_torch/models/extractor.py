@@ -4,7 +4,9 @@ The port of the JAX package's ``models/extractor.py``:
 
 * :class:`Feature` -- EdgeNeXt-S pyramid fused top-down with ``Conv2xIN``
   transposed convs; the frozen DepthAnything feature is concatenated at 1/4
-  resolution. Returns [x4, x8, x16, x32] and the ViT feature.
+  resolution. Returns [x4, x8, x16, x32] and the ViT feature. The
+  DepthAnything model is frozen: its parameters do not require grad and it
+  runs under ``torch.no_grad`` (the JAX package's ``stop_gradient``).
 * :class:`ContextNetDino` -- residual trunk that fuses the ViT feature at
   1/4 and emits (hidden, context) pairs at 1/4, 1/8 and 1/16.
 * :class:`Stem2` -- the half-resolution stem of the convex upsampler.
@@ -55,12 +57,14 @@ class Feature(nn.Module):
             ResidualBlock(c4, c4, norm="instance", cdt=cdt),
             ResidualBlock(c4, c4, norm="instance", cdt=cdt))
         self.dino = DepthAnythingFeature(cfg.vit_size, cfg.vit_attention, cfg.use_pallas, cdt)
+        self.dino.requires_grad_(False)
 
     def forward(self, x):
         H, W = x.shape[-2:]
         H_r, W_r = get_resize_keep_aspect_ratio(H, W, divider=112, max_H=1344, max_W=1344)
-        x_vit = resize2d(x, (H_r, W_r), "bicubic", align_corners=False)
-        vit_feat = self.dino(x_vit, out_hw=(H // 4, W // 4))
+        with torch.no_grad():
+            x_vit = resize2d(x, (H_r, W_r), "bicubic", align_corners=False)
+            vit_feat = self.dino(x_vit, out_hw=(H // 4, W // 4))
 
         x = self.stem(x)
         feats = []

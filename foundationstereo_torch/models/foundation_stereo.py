@@ -1,4 +1,5 @@
-"""The full stereo model, inference forward (``test_mode=True``).
+"""The full stereo model: the inference forward (``test_mode=True``) and the
+train-mode forward (``test_mode=False``).
 
 The port of the JAX package's ``models/foundation_stereo.py``: features ->
 cost-volume parts -> CorrStem / FeatureAtt -> hourglass with the disparity
@@ -19,6 +20,23 @@ plain twins on the CPU); without it the model calls the plain twins
 directly. With ``use_pallas`` and ``pallas_conv3x3`` the constructor also
 marks the eligible 3x3 convs (``models/layers.py:route_conv3x3``), which
 then run through the conv kernel. Nothing else changes between the paths.
+
+The train-mode forward (``test_mode=False``) returns the initial disparity
+at 1/4 resolution and the full-resolution disparity of every refinement
+step, each step's input disparity detached, as the JAX package's does.
+With ``train=True`` (the model in ``train()`` mode) batch norm takes the
+batch's statistics and the disparity transformer's dropouts draw from the
+enclosing ``layers.dropout_generator``; the cost-volume build and the lookup
+run their differentiable twins with fp32 pyramids, the 3x3 convs
+``F.conv2d``, and only the frozen ViT's attention runs its kernel, under
+``no_grad``. ``forward`` decides this once per call, from ``train`` or
+grad mode (``differentiable``): the kernels have no backward, so an
+eval-mode forward that takes gradients takes the same route (as the JAX
+package's ``train_flag=False`` gradients take its XLA forms), and a kernel
+wrapper handed a tensor that needs a backward raises. ``remat_filter``
+checkpoints CorrStem, FeatureAtt, Hourglass and Classifier,
+``remat_refine`` each refinement step and ``scan_upsample`` each step's
+upsampling head (``layers.checkpointed``).
 
 Under a mesh (``parallel.mesh_context``) each forward call picks its kernels
 as the JAX package's ``_pallas_mode`` does (``kernel_mode``): the
@@ -47,6 +65,7 @@ from foundationstereo_torch.models.layers import (
     ConvTranspose2d,
     FeatureAtt,
     SpatialAttentionExtractor,
+    checkpointed,
     route_conv3x3,
 )
 from foundationstereo_torch.models.update import BasicSelectiveMultiUpdateBlock
@@ -63,14 +82,17 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     return ((img.float() / 255.0 - mean) / std).permute(0, 3, 1, 2)
 
 
-def kernel_mode(cfg: ModelConfig, mesh: Mesh | None, w4: int) -> str:
+def kernel_mode(cfg: ModelConfig, mesh: Mesh | None, w4: int,
+                differentiable: bool = False) -> str:
     """The cost-volume build and lookup of one forward call: "plain" (the
-    twins; no ``use_pallas``), "sharded" (K5, on a mesh whose ``spatial``
-    axis is > 1 and divides W/4) or "single" (K1 and K2 on the model's
-    device). A mesh whose ``spatial`` axis does not divide W/4 takes
+    twins; no ``use_pallas``, or ``differentiable``: in training, as the JAX
+    package's ``_pallas_mode`` rules, and wherever the forward takes
+    gradients, since the kernels have no backward), "sharded" (K5, on a
+    mesh whose ``spatial`` axis is > 1 and divides W/4) or "single" (K1 and
+    K2 on the model's device). A mesh whose ``spatial`` axis does not divide W/4 takes
     "single" where the JAX package takes its XLA forms: the same numbers,
-    and no plain twin serves on the card."""
-    if not cfg.use_pallas:
+    and no plain twin serves on the card in inference."""
+    if not cfg.use_pallas or differentiable:
         return "plain"
     spatial = 1 if mesh is None else mesh.shape.get("spatial", 1)
     return "sharded" if spatial > 1 and w4 % spatial == 0 else "single"
@@ -88,9 +110,11 @@ class FoundationStereo(nn.Module):
     """``forward(left, right, iters=12, test_mode=False, low_memory=False,
     init_disp=None, train=False)``, the JAX package's ``__call__`` signature:
     left and right are (B, H, W, 3) RGB in [0, 255] with H and W divisible
-    by 32; with ``test_mode=True`` returns the (B, H, W) disparity.
-    ``low_memory`` is accepted and ignored, as there. The train-mode forward
-    (``test_mode=False`` or ``train=True``) is not ported yet and raises.
+    by 32; with ``test_mode=True`` returns the (B, H, W) disparity, with
+    ``test_mode=False`` the (B, H/4, W/4) initial disparity and the list of
+    ``iters`` (B, H, W) disparities. ``low_memory`` is accepted and ignored,
+    as there. ``train`` must match the module's mode (``model.train()`` /
+    ``model.eval()``), or the call raises.
 
     Weights are drawn from a ``torch.Generator`` seeded with ``seed``
     (the same families of initialisers as the JAX package's flax modules);
@@ -124,8 +148,8 @@ class FoundationStereo(nn.Module):
                 cfg.hidden_dims[0], cfg.n_gru_layers, n_corr, cdt)
             self.spx_2_gru = Conv2x(32, 32, bn=False, cdt=cdt)
             self.spx_gru = nn.Sequential(ConvTranspose2d(64, 9, 4, 2, 1, cdt=cdt))
-        if cfg.use_pallas and cfg.pallas_conv3x3:
-            route_conv3x3(self)
+        # The convs routed through K4; ``forward`` sets their ``k4_on``.
+        self._k4_convs = route_conv3x3(self) if cfg.use_pallas and cfg.pallas_conv3x3 else []
         self.init_weights(torch.Generator(device=device).manual_seed(seed))
         self.eval()
 
@@ -156,14 +180,27 @@ class FoundationStereo(nn.Module):
                 low_memory: bool = False, init_disp: torch.Tensor | None = None,
                 train: bool = False):
         del low_memory      # part of the reference's forward contract; nothing to gate
-        if not test_mode or train:
-            raise NotImplementedError("the train-mode forward is not ported yet: pass "
-                                      "test_mode=True")
+        if train != self.training:
+            raise ValueError(f"train={train} but the model is in {'train' if self.training else 'eval'}"
+                             f" mode: call model.{'train' if train else 'eval'}() first")
         cfg, dt = self.cfg, self.cdt
         B = left.shape[0]
         D = cfg.max_disp // 4
         mesh = current_mesh()
-        mode = kernel_mode(cfg, mesh, left.shape[2] // 4)
+        grad = torch.is_grad_enabled()
+        differentiable = train or grad
+        mode = kernel_mode(cfg, mesh, left.shape[2] // 4, differentiable)
+        # K4 as the JAX package enables it: single-device inference only.
+        k4_on = not differentiable and (mesh is None or mesh.size == 1)
+        for m in self._k4_convs:
+            m.k4_on = k4_on
+        remat_filter = train and grad and cfg.remat_filter
+        remat_refine = train and grad and cfg.remat_refine
+        remat_head = grad and not test_mode and cfg.scan_upsample
+
+        def filt(module, *args):
+            return checkpointed(module, *args) if remat_filter else module(*args)
+
         img1 = normalize_image(left).to(dt)
         img2 = normalize_image(right).to(dt)
 
@@ -181,13 +218,13 @@ class FoundationStereo(nn.Module):
         else:
             build = kernels.cost_volume_parts if mode == "single" else cost_volume.cost_volume_parts
             gwc, rps = build(*args, out_dtype=dt)
-        comb = self.corr_stem((gwc, rps, lproj))
+        comb = filt(self.corr_stem, (gwc, rps, lproj))
         del gwc, rps
-        comb = self.corr_feature_att(comb, fl[0])
-        comb = self.cost_agg(comb, fl)
+        comb = filt(self.corr_feature_att, comb, fl[0])
+        comb = filt(self.cost_agg, comb, fl)
 
         # Initial disparity: soft-argmin in fp32.
-        prob = torch.softmax(self.classifier(comb).float(), dim=1)    # (B, D, H/4, W/4)
+        prob = torch.softmax(filt(self.classifier, comb).float(), dim=1)  # (B, D, H/4, W/4)
         if init_disp is None:
             init_disp = disparity_regression(prob, D)
 
@@ -197,8 +234,10 @@ class FoundationStereo(nn.Module):
         inp_list = [self.cam(x) * x for x in inp_list]
         att = [self.sam(x) for x in inp_list]
 
-        # Geometry and all-pairs correlation pyramids, pooled in fp32.
-        pyr_dt = self.pyramid_dtype
+        # Geometry and all-pairs correlation pyramids, pooled in fp32 (and
+        # kept in fp32 where gradients flow, as the JAX package's XLA forms
+        # keep them).
+        pyr_dt = torch.float32 if differentiable else self.pyramid_dtype
         geo_base = comb.float().permute(0, 3, 4, 1, 2)                  # (B, H, W, C, D)
         corr_base = cost_volume.all_pairs_correlation(fl[0], fr[0])     # (B, H, W, W)
         geo_pyr = [g.to(pyr_dt).contiguous()
@@ -214,13 +253,28 @@ class FoundationStereo(nn.Module):
             fn = kernels.disparity_lookup if mode == "single" else sampler.disparity_lookup
             lookup = functools.partial(fn, geo_pyr, corr_pyr)
         del geo_pyr, corr_pyr
-        disp = init_disp.float().contiguous()
-        mask_feat = torch.zeros((B, 32) + disp.shape[1:], device=disp.device, dtype=dt)
-        for _ in range(iters):
+
+        def refine(net_list, disp):
             geo_feat = lookup(disp, cfg.corr_radius, out_dtype=dt)
             net_list, mask_feat, delta = self.update_block(
                 net_list, inp_list, geo_feat, disp[:, None].to(dt), att)
-            disp = disp + delta[:, 0].float()
+            return net_list, disp + delta[:, 0].float(), mask_feat
+
+        disp = init_disp.float().contiguous()
+        mask_feat = torch.zeros((B, 32) + disp.shape[1:], device=disp.device, dtype=dt)
+        preds = []
+        for _ in range(iters):
+            disp = disp.detach()
+            if remat_refine:
+                net_list, disp, mask_feat = checkpointed(refine, net_list, disp)
+            else:
+                net_list, disp, mask_feat = refine(net_list, disp)
+            if not test_mode:
+                head = (checkpointed(self._upsample_head, disp, mask_feat, stem_2x) if remat_head
+                        else self._upsample_head(disp, mask_feat, stem_2x))
+                preds.append(head)
+        if not test_mode:
+            return init_disp, preds
         return self._upsample_head(disp, mask_feat, stem_2x)
 
     def _upsample_head(self, disp, mask_feat, stem_2x):

@@ -18,25 +18,38 @@ are those the JAX package routes under its ``pallas_conv3x3_scope``: the 2D
 conv, the (1, 3, 3) 3D conv with D folded into the batch (the kernel reads
 the (B, C, D, H, W) volume in place through its strides, no copy), and the
 per-tap decomposition of a full 3D conv whose spatial part is 3x3/s1/p1.
-The routed convs take K4 only off a multi-device mesh (``k4_active``).
+Whether a routed conv takes K4 in a call is its ``k4_on``, which the
+model's ``forward`` sets once per call for all of them: off where the
+forward takes gradients (K4 has no backward) and on a multi-device mesh.
+
+Training (``self.training``, set by ``model.train()``): batch norm
+normalises with the batch's statistics and moves its running ones, and the
+disparity transformer's dropouts draw masks from the generator of the
+enclosing ``dropout_generator`` block (flax's "dropout" stream).
+``checkpointed`` runs a region under ``torch.utils.checkpoint`` so that its
+recompute in the backward draws the same masks and moves no running stats.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
-from foundationstereo_torch.parallel.mesh import current_mesh
 
 
 def leaky_relu(x):
-    return F.leaky_relu(x, 0.01)
+    """LeakyReLU (slope 0.01) with flax's derivative 1 at exactly 0
+    (``F.leaky_relu``'s is 0.01 there, which moves the gradient wherever a
+    bias-free conv sees an all-zero window)."""
+    return torch.where(x >= 0, x, 0.01 * x)
 
 
 def gelu(x):
@@ -62,30 +75,30 @@ def k4_input(x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return x if x.stride(-1) == 1 and x.stride(-2) == x.shape[-1] else x.contiguous()
 
 
-def k4_active() -> bool:
-    """Whether the routed convs take K4 in this call: not under a mesh of
-    more than one entry. The JAX package enables K4 only on the
-    single-device lookup path (``models/foundation_stereo.py:236-239``)."""
-    mesh = current_mesh()
-    return mesh is None or mesh.size == 1
-
-
-def route_conv3x3(model: nn.Module) -> None:
-    """Route every eligible conv of ``model`` through the 3x3 conv kernel."""
+def route_conv3x3(model: nn.Module) -> list[nn.Module]:
+    """Route every eligible conv of ``model`` through the 3x3 conv kernel;
+    returns the routed modules."""
+    routed = []
     for m in model.modules():
         if hasattr(m, "enable_k4"):
             m.enable_k4()
+            if m.k4:
+                routed.append(m)
+    return routed
 
 
 class PackedWeights:
     """Weights derived from parameters (cast, fused or packed for K4), made
     once and made again when a source parameter changes (its ``_version``),
-    moves (its storage) or the compute dtype differs."""
+    moves (its storage) or the compute dtype differs; made anew in each call,
+    under autograd, where gradients flow to the parameters."""
 
     def __init__(self):
         self.key, self.value = None, None
 
     def __call__(self, params, extra, make):
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return make()
         key = tuple((p._version, p.data_ptr(), p.device) for p in params) + tuple(extra)
         if key != self.key:
             with torch.no_grad():
@@ -102,7 +115,7 @@ class Conv2d(nn.Conv2d):
                  cdt=torch.float32):
         super().__init__(cin, cout, k, stride, padding, groups=groups, bias=bias)
         self.cdt = cdt
-        self.k4 = False
+        self.k4, self.k4_on = False, True
         self._k4_weight = PackedWeights()
 
     def enable_k4(self):
@@ -110,7 +123,7 @@ class Conv2d(nn.Conv2d):
                               self.groups, self.in_channels, self.out_channels)
 
     def forward(self, x):
-        if self.k4 and k4_active():
+        if self.k4 and self.k4_on:
             packed = self._k4_weight(
                 [self.weight], [self.cdt],
                 lambda: kernels.pack_conv3x3_weight(self.weight, self.cdt)) if x.is_cuda else None
@@ -131,7 +144,7 @@ class Conv3d(nn.Conv3d):
                  cdt=torch.float32):
         super().__init__(cin, cout, k, stride, padding, groups=groups, bias=bias)
         self.cdt = cdt
-        self.k4 = None
+        self.k4, self.k4_on = None, True
         self._k4_weight = PackedWeights()
 
     def enable_k4(self):
@@ -145,7 +158,7 @@ class Conv3d(nn.Conv3d):
                 self.k4 = "fold"
 
     def forward(self, x):
-        if self.k4 is None or not k4_active():
+        if self.k4 is None or not self.k4_on:
             return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
                                       _cast(self.bias, self.cdt))
         x = k4_input(x, self.cdt)
@@ -208,25 +221,122 @@ def conv_nd(is_3d: bool, *args, **kwargs):
 
 
 # ---------------------------------------------------------------------------
+# Training: dropout masks and checkpointed regions
+# ---------------------------------------------------------------------------
+
+# The generator of the innermost ``dropout_generator`` block, and how many
+# checkpointed regions are being recomputed (a list: the recompute runs on
+# the autograd engine's thread).
+_DROPOUT_GEN: list = [None]
+_RECOMPUTE: list = [0]
+
+
+@contextlib.contextmanager
+def dropout_generator(gen: torch.Generator | None):
+    """Inside the block, train-mode dropouts draw their masks from ``gen``."""
+    prev, _DROPOUT_GEN[0] = _DROPOUT_GEN[0], gen
+    try:
+        yield gen
+    finally:
+        _DROPOUT_GEN[0] = prev
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """flax's ``nn.Dropout``: keep with probability 1 - rate (a uniform draw
+    below it), scale the kept values by 1 / (1 - rate). Identity outside
+    training; in training the mask comes from the ``dropout_generator``."""
+    if not training or rate == 0.0:
+        return x
+    gen = _DROPOUT_GEN[0]
+    if gen is None:
+        raise RuntimeError("train-mode dropout needs a generator: run the forward inside "
+                           "layers.dropout_generator(torch.Generator(...))")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+@contextlib.contextmanager
+def _forward_entry(gen, saved: dict):
+    """A checkpointed region's forward: records the dropout generator's state
+    at its entry."""
+    if gen is not None:
+        saved["state"] = gen.get_state()
+    yield
+
+
+@contextlib.contextmanager
+def _recompute(gen, saved: dict):
+    """The recompute of a checkpointed region: the dropout generator back at
+    the state the forward began with (and put back where it was after), and
+    batch norm's running stats left alone."""
+    _RECOMPUTE[0] += 1
+    prev_gen, _DROPOUT_GEN[0] = _DROPOUT_GEN[0], gen
+    after = gen.get_state() if gen is not None else None
+    if gen is not None:
+        gen.set_state(saved["state"])
+    try:
+        yield
+    finally:
+        if gen is not None:
+            gen.set_state(after)
+        _DROPOUT_GEN[0] = prev_gen
+        _RECOMPUTE[0] -= 1
+
+
+def checkpointed(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant): its
+    activations are recomputed in the backward instead of kept, as flax's
+    ``nn.remat`` does. ``checkpoint`` restores the global RNGs for the
+    recompute but not an explicit generator, so the dropout generator is put
+    back to its state at the forward's entry here; batch norm skips its
+    running-stat update in the recompute."""
+    gen, saved = _DROPOUT_GEN[0], {}
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (_forward_entry(gen, saved), _recompute(gen, saved)))
+
+
+# ---------------------------------------------------------------------------
 # Normalisation
 # ---------------------------------------------------------------------------
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over axis 1 (eps 1e-5) with the reference's
-    parameter and buffer names; fp32 in, fp32 out."""
+    """Batch norm over axis 1 (eps 1e-5, momentum 0.1) with the reference's
+    parameter and buffer names; computes in fp32, returns fp32.
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In training it normalises with the batch's mean and its biased variance
+    E[x^2] - E[x]^2 (clipped at 0), and moves the running stats toward that
+    same biased variance, as flax's ``nn.BatchNorm`` does
+    (``F.batch_norm(training=True)`` would move them toward the unbiased
+    one); the update is made once per forward, never in the recompute of a
+    ``checkpointed`` region."""
+
+    def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, self.eps)
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        axes = [0] + list(range(2, x.ndim))
+        mean = x.mean(axes)
+        var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+        if not _RECOMPUTE[0]:
+            keep = 1.0 - self.momentum             # flax's momentum
+            with torch.no_grad():
+                self.running_mean.copy_(keep * self.running_mean + (1.0 - keep) * mean)
+                self.running_var.copy_(keep * self.running_var + (1.0 - keep) * var)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
 
 
 class InstanceNorm(nn.Module):
@@ -494,10 +604,13 @@ class MultiheadAttention(nn.Module):
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Post-norm encoder layer with a GELU feed-forward (inference: no dropout)."""
+    """Post-norm encoder layer with a GELU feed-forward; in training, dropout
+    (``rate``) on the attention output, the hidden layer and the
+    feed-forward output."""
 
-    def __init__(self, embed_dim, num_heads, dim_feedforward, cdt=torch.float32):
+    def __init__(self, embed_dim, num_heads, dim_feedforward, rate=0.1, cdt=torch.float32):
         super().__init__()
+        self.rate = rate
         self.self_attn = MultiheadAttention(embed_dim, num_heads, cdt=cdt)
         self.linear1 = Linear(embed_dim, dim_feedforward, cdt=cdt)
         self.linear2 = Linear(dim_feedforward, embed_dim, cdt=cdt)
@@ -505,8 +618,9 @@ class TransformerEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(embed_dim)
 
     def forward(self, x):
-        x = self.norm1(x + self.self_attn(x, x, x))
-        return self.norm2(x + self.linear2(gelu(self.linear1(x))))
+        drop = lambda t: dropout(t, self.rate, self.training)  # noqa: E731
+        x = self.norm1(x + drop(self.self_attn(x, x, x)))
+        return self.norm2(x + drop(self.linear2(drop(gelu(self.linear1(x))))))
 
 
 class CostVolumeDisparityAttention(nn.Module):

@@ -13,7 +13,6 @@ from foundationstereo_torch.models.layers import (
     Conv2d,
     EdgeNextConvEncoder,
     PackedWeights,
-    k4_active,
     k4_eligible,
     k4_input,
 )
@@ -47,7 +46,7 @@ class RaftConvGRU(nn.Module):
     As in the JAX package, the z and r gates run as one conv over their
     weights concatenated along the output channels (the parameters keep the
     separate ``convz``/``convr`` names); that conv goes through K4 once
-    ``enable_k4`` found its fused shape eligible (and ``k4_active()``)."""
+    ``enable_k4`` found its fused shape eligible (and ``k4_on``)."""
 
     def __init__(self, hidden_dim, input_dim, k=3, cdt=torch.float32):
         super().__init__()
@@ -55,7 +54,7 @@ class RaftConvGRU(nn.Module):
         self.convz = Conv2d(hidden_dim + input_dim, hidden_dim, k, 1, p, cdt=cdt)
         self.convr = Conv2d(hidden_dim + input_dim, hidden_dim, k, 1, p, cdt=cdt)
         self.convq = Conv2d(hidden_dim + input_dim, hidden_dim, k, 1, p, cdt=cdt)
-        self.k4 = False
+        self.k4, self.k4_on = False, True
         self._zr = PackedWeights()
 
     def enable_k4(self):
@@ -65,7 +64,7 @@ class RaftConvGRU(nn.Module):
 
     def _zr_weights(self, pack: bool):
         """(weight, bias, K4 layout if ``pack`` else None) of the fused z/r
-        conv in ``cdt``."""
+        conv in ``cdt`` (``PackedWeights``)."""
         cz, cr, cdt = self.convz, self.convr, self.convz.cdt
 
         def make():
@@ -76,7 +75,7 @@ class RaftConvGRU(nn.Module):
         return self._zr([cz.weight, cr.weight, cz.bias, cr.bias], [cdt, pack], make)
 
     def forward(self, h, x, hx):
-        k4 = self.k4 and k4_active()
+        k4 = self.k4 and self.k4_on
         w, b, packed = self._zr_weights(k4 and hx.is_cuda)
         if k4:
             zr = kernels.conv3x3(k4_input(hx, self.convz.cdt), w, b, packed)

@@ -28,7 +28,10 @@ its source, so an edited source is rebuilt. A failed build or load raises.
 On a CPU tensor a wrapper runs its kernel's plain PyTorch twin; on a CUDA
 tensor it launches the kernel on that tensor's device, under its device
 guard and on its current stream (and adds one to ``LAUNCHES[name]``), or
-raises.
+raises. The kernels have no backward: given a tensor that requires grad
+while grad is enabled, a wrapper raises on the card (the twins on the CPU
+are differentiable); ``flash_attention``, forward-only in the JAX package
+too (the frozen ViT), raises on either device.
 
 Each C entry point reports the grid it launched (``COST_VOLUME_LAUNCHED``,
 ``LOOKUP_LAUNCHED``, ``FLASH_ATTENTION_LAUNCHED``, ``CONV3X3_LAUNCHED``);
@@ -185,6 +188,16 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def _forward_only(name: str, *tensors: torch.Tensor | None) -> None:
+    """The kernels have no backward: refuse a tensor that requires grad
+    while grad is enabled, rather than return an output with no
+    ``grad_fn``."""
+    _require(not (torch.is_grad_enabled()
+                  and any(t is not None and t.requires_grad for t in tensors)),
+             f"{name} has no backward: call it under torch.no_grad() or on tensors "
+             "that do not require grad")
+
+
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     devs = {t.device for t in tensors}
     _require(len(devs) == 1, f"tensors on mixed devices {devs}")
@@ -256,6 +269,7 @@ def cost_volume_grid(b: int, h: int, w: int, d: int, groups: int, p: int) -> tup
 
 
 def _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset):
+    _forward_only("the cost-volume kernel", left, right, right_proj)
     b, c, h, w = left.shape
     wr = right.shape[-1]
     p = right_proj.shape[1]
@@ -334,6 +348,7 @@ def lookup_grid(b: int, h: int, w: int, levels: int, c: int) -> tuple[int, int, 
 
 
 def _lookup(name, geo_pyramid, corr_pyramid, disp, radius, out_dtype, x_offset):
+    _forward_only(name, disp, *geo_pyramid, *corr_pyramid)
     b, h, w = disp.shape
     n = len(geo_pyramid)
     c = geo_pyramid[0].shape[3]
@@ -381,7 +396,10 @@ def flash_attention_plain(qkv: torch.Tensor, scale: float) -> torch.Tensor:
 def flash_attention(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     """Softmax attention from the packed projection qkv (B, N, 3, H, 64) ->
     (B, N, H, 64) in qkv's dtype: bfloat16 products in one tensor-core pass,
-    float32 in three TF32 passes."""
+    float32 in three TF32 passes. Forward only, as the JAX package runs it
+    (the frozen ViT): a qkv that requires grad while grad is enabled raises,
+    on either device."""
+    _forward_only("flash_attention", qkv)
     if not _on_cuda(qkv):
         return flash_attention_plain(qkv, scale)
     return _attention("flash_attention", qkv, scale, 0, qkv.shape[3])
@@ -392,6 +410,7 @@ def flash_attention_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int
     qkv (B, N, 3, H, 64), read in place -> (B, N, n_heads, 64)."""
     if not _on_cuda(qkv):
         return flash_attention_plain(qkv[:, :, :, h0:h0 + n_heads], scale)
+    _forward_only("flash_attention_heads", qkv)
     return _attention("flash_attention_heads", qkv, scale, h0, n_heads)
 
 
@@ -573,6 +592,7 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
     """
     if not _on_cuda(x, weight):
         return conv3x3_plain(x, weight, bias)
+    _forward_only("conv3x3", x, weight, bias)
     _require(x.ndim in (4, 5), f"x shape {tuple(x.shape)}: want (N, C, H, W) or (B, C, D, H, W)")
     _require(x.dtype in _FLOATS, "x must be float32 or bfloat16")
     f, c = weight.shape[:2]

@@ -25,7 +25,14 @@ def interp_matrix_np(in_size: int, out_size: int, method: str, align_corners: bo
 
     ``scale_factor`` (align_corners=False only) uses torch's scale-factor
     coordinate map src = (dst + 0.5) / scale - 0.5 instead of the size ratio.
+    "nearest" picks source index floor(dst * in / out), torch's legacy mode.
     """
+    if method == "nearest":
+        idx = np.minimum((np.arange(out_size) * (in_size / out_size)).astype(np.int64),
+                         in_size - 1)
+        m = np.zeros((out_size, in_size), np.float64)
+        m[np.arange(out_size), idx] = 1.0
+        return m.astype(np.float32)
     if align_corners:
         if out_size == 1:
             src = np.zeros(out_size, np.float64)
@@ -62,7 +69,8 @@ def interp_matrix_np(in_size: int, out_size: int, method: str, align_corners: bo
     return m.astype(np.float32)
 
 
-_METHOD_ALIASES = {"bilinear": "linear", "trilinear": "linear", "bicubic": "cubic"}
+_METHOD_ALIASES = {"bilinear": "linear", "trilinear": "linear", "bicubic": "cubic",
+                   "nearest": "nearest"}
 
 
 def _apply_axis(x: torch.Tensor, m: np.ndarray, axis: int) -> torch.Tensor:

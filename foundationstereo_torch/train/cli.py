@@ -1,0 +1,246 @@
+"""Training CLI of the PyTorch port (the counterpart of ``scripts/train.py``).
+
+    python -m foundationstereo_torch.train.cli --config configs/train/stereo_v1.json \\
+        --workspace workspace/run1 [--num_iterations N] [--batch_size B] \\
+        [--checkpoint latest|none|STEP] [--device cuda|cpu]
+
+The same flags, ``--override`` paths and JSON config as the JAX CLI: the
+data pipeline prefetches on host threads, each batch is padded to /32 on
+the host and moved to the device (pinned, non-blocking), the trainer takes
+one step, and each step's metrics go to ``metrics.jsonl`` with the phase
+times ``t_dispatch`` (the step: forward, backward and update, up to its one
+synchronisation), ``t_get`` (waiting on the pipeline), ``t_data`` (padding
+and the copy to the device) and ``t_fence`` (fetching the metrics).
+Checkpoints (``train/checkpoints.py``) go to ``<workspace>/checkpoints`` every
+``--save_every`` steps and at the end; a run resumes from ``latest`` by
+default. One device: ``--n_devices`` above 1 raises (data-parallel training
+waits, ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from pathlib import Path
+
+import numpy as np
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="FoundationStereo training on PyTorch")
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--workspace", default="workspace/run")
+    ap.add_argument("--num_iterations", type=int, default=200_000)
+    ap.add_argument("--batch_size", type=int, default=4)
+    ap.add_argument("--gradient_accumulation_steps", type=int, default=1)
+    ap.add_argument("--checkpoint", default="latest", help="'latest', a step number, or 'none'")
+    ap.add_argument("--save_every", type=int, default=1000)
+    ap.add_argument("--log_every", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ema", type=int, default=1)
+    ap.add_argument("--n_devices", type=int, default=0, help="0 or 1: one device")
+    ap.add_argument("--mlflow", type=int, default=0)
+    ap.add_argument("--vis_every", type=int, default=0,
+                    help="dump left|GT|prediction panels every N steps")
+    ap.add_argument("--profile_steps", type=str, default="",
+                    help="'start,stop' step range to trace with torch.profiler")
+    ap.add_argument("--override", action="append", default=[],
+                    help="dot-path config override, e.g. model.vit_size=vits "
+                         "or data.datasets.0.path=/tmp/data (JSON values)")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return ap.parse_args(argv)
+
+
+def apply_overrides(config: dict, overrides: list[str]) -> dict:
+    for ov in overrides:
+        path, _, raw = ov.partition("=")
+        try:
+            value = json.loads(raw)
+        except json.JSONDecodeError:
+            value = raw
+        node = config
+        keys = path.split(".")
+        for k in keys[:-1]:
+            node = node[int(k)] if isinstance(node, list) else node[k]
+        last = keys[-1]
+        if isinstance(node, list):
+            node[int(last)] = value
+        else:
+            node[last] = value
+    return config
+
+
+def host_batch(raw: dict, loss_cfg: dict) -> dict:
+    """A pipeline batch as the trainer's arrays: images back to 0-255 and
+    padded to /32 (edge mode), disparity and mask zero-padded, label
+    indices and a fresh dropout ``rng``."""
+    from foundationstereo_torch.ops.pad import InputPadder
+    from foundationstereo_torch.train.trainer import make_label_index
+
+    left = (raw["left_image"] * np.float32(255.0)).astype(np.float32)
+    right = (raw["right_image"] * np.float32(255.0)).astype(np.float32)
+    padder = InputPadder(left.shape, divis_by=32)
+    l, _, t, _ = padder.pads
+    left, right = padder.pad_np(left, right)
+    h, w = left.shape[1], left.shape[2]
+    gt = np.zeros((left.shape[0], h, w), np.float32)
+    m = np.zeros((left.shape[0], h, w), bool)
+    dh, dw = raw["disparity"].shape[1:3]
+    gt[:, t:t + dh, l:l + dw] = raw["disparity"]
+    m[:, t:t + dh, l:l + dw] = raw["disparity_mask"]
+    return {"left": left, "right": right, "disparity": gt, "mask": m,
+            "label_idx": make_label_index(raw["label_type"], loss_cfg),
+            "rng": np.random.randint(0, 2 ** 31, size=2).astype(np.uint32)}
+
+
+def to_device(batch: dict, device) -> dict:
+    """numpy batch -> tensors on ``device`` (pinned and non-blocking on CUDA);
+    ``rng`` stays on the host."""
+    import torch
+
+    out = {}
+    for k, v in batch.items():
+        if k == "rng":
+            out[k] = v
+            continue
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def main(argv=None) -> dict:
+    """Runs the training; returns the last logged metrics line."""
+    args = parse_args(argv)
+    if args.n_devices > 1:
+        raise NotImplementedError("data-parallel training over several devices is not ported "
+                                  "yet (ROADMAP.md, Queue A): pass --n_devices 1")
+    config = apply_overrides(json.loads(Path(args.config).read_text()), args.override)
+    workspace = Path(args.workspace)
+    workspace.mkdir(parents=True, exist_ok=True)
+    (workspace / "config.json").write_text(json.dumps(config, indent=2))
+
+    import torch
+
+    from foundationstereo_torch.models.foundation_stereo import resolve_device
+    from foundationstereo_torch.train.checkpoints import CheckpointManager
+    from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
+    from foundationstereo_torch.train.trainer import Trainer
+    from foundationstereo_torch.utils.misc import set_seed
+
+    device = resolve_device(args.device)
+    set_seed(args.seed)
+    print(f"device: {device}", flush=True)
+
+    mlflow = None
+    if args.mlflow:
+        try:
+            import mlflow as _mlflow
+            mlflow = _mlflow
+            mlflow.start_run()
+            mlflow.log_params({f"model.{k}": v for k, v in config["model"].items()})
+        except Exception as e:  # noqa: BLE001 -- soft-fail like the reference
+            print(f"mlflow disabled: {e}")
+
+    data_pipe = StereoTrainDataLoaderPipeline(config["data"], args.batch_size, num_load_workers=4)
+    data_pipe.start()
+
+    def next_batch():
+        return to_device(host_batch(data_pipe.get(), config["loss"]), device)
+
+    try:
+        trainer = Trainer(config, seed=args.seed, enable_ema=bool(args.ema), device=device)
+        batch = next_batch()
+        state = trainer.init_state()
+        ckpt = CheckpointManager(workspace / "checkpoints", max_to_keep=5)
+        initial_step = 0
+        if args.checkpoint != "none":
+            state, initial_step = ckpt.restore(args.checkpoint, state)
+            if initial_step:
+                print(f"resumed from step {initial_step}", flush=True)
+
+        metrics_log = open(workspace / "metrics.jsonl", "a")
+        records, line = [], {}
+        t_last = time.time()
+        prof_range = [int(x) for x in args.profile_steps.split(",")] if args.profile_steps else None
+        prof = None
+        for step in range(initial_step, args.num_iterations):
+            if prof_range and step == prof_range[0]:
+                prof = torch.profiler.profile(record_shapes=False)
+                prof.__enter__()
+            t0 = time.perf_counter()
+            if args.gradient_accumulation_steps > 1:
+                micros = [batch] + [next_batch() for _ in range(args.gradient_accumulation_steps - 1)]
+                state, metrics = trainer.train_step_accum(state, micros)
+            else:
+                state, metrics = trainer.train_step(state, batch)
+            t_dispatch = time.perf_counter() - t0
+            last_batch = batch
+            t0 = time.perf_counter()
+            raw = data_pipe.get()
+            t_get = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            batch = to_device(host_batch(raw, config["loss"]), device)
+            t_data = time.perf_counter() - t0
+            # One device-to-host copy of every metric.
+            t0 = time.perf_counter()
+            keys = list(metrics)
+            values = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float32,
+                                                  device=device) for k in keys]).cpu().tolist()
+            t_fence = time.perf_counter() - t0
+            rec = dict(zip(keys, values), t_dispatch=t_dispatch, t_get=t_get, t_data=t_data,
+                       t_fence=t_fence)
+            records.append(rec)
+            if prof is not None and step == prof_range[1]:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(str(workspace / "profile.json"))
+                print(f"profile trace written to {workspace / 'profile.json'}", flush=True)
+                prof = None
+
+            if args.vis_every and step % args.vis_every == 0:
+                try:
+                    from PIL import Image
+
+                    from foundationstereo_torch.utils.vis import vis_disparity
+                    disp, _ = trainer.eval_step(state, last_batch)
+                    panel = np.concatenate([
+                        last_batch["left"][0].cpu().numpy().astype(np.uint8),
+                        vis_disparity(last_batch["disparity"][0].cpu().numpy()),
+                        vis_disparity(disp[0].float().cpu().numpy())], axis=1)
+                    vis_dir = workspace / "vis"
+                    vis_dir.mkdir(exist_ok=True)
+                    Image.fromarray(panel).save(vis_dir / f"{step:08d}.png")
+                except Exception as e:  # noqa: BLE001 -- vis must not kill training
+                    print(f"vis failed: {e}", flush=True)
+
+            if step % args.log_every == 0 or step == initial_step:
+                avg = {k: float(np.mean([r[k] for r in records if k in r])) for k in records[-1]}
+                dt = time.time() - t_last
+                line = {"step": step, "it_per_s": round(len(records) / max(dt, 1e-9), 3), **avg}
+                print(json.dumps({k: round(v, 5) if isinstance(v, float) else v
+                                  for k, v in line.items()}), flush=True)
+                metrics_log.write(json.dumps(line) + "\n")
+                metrics_log.flush()
+                if mlflow:
+                    try:
+                        mlflow.log_metrics(avg, step=step)
+                    except Exception as e:  # noqa: BLE001
+                        print(f"mlflow error: {e}")
+                records, t_last = [], time.time()
+
+            if step % args.save_every == 0 and step > initial_step:
+                ckpt.save(step, state, config=config)
+
+        ckpt.save(args.num_iterations, state, config=config)
+        ckpt.wait()
+        metrics_log.close()
+    finally:
+        data_pipe.stop()
+    print("training done", flush=True)
+    return line
+
+
+if __name__ == "__main__":
+    main()

@@ -30,3 +30,28 @@ def get_resize_keep_aspect_ratio(H: int, W: int, divider: int = 16,
             H_resize = round_by_divider(H_resize * max_W / W_resize)
             W_resize = max_W
     return int(H_resize), int(W_resize)
+
+
+def depth_uint8_decoding(depth_uint8: np.ndarray, scale: float = 1000) -> np.ndarray:
+    """Decode a 3-channel base-255 uint8 disparity image (float64)."""
+    d = depth_uint8.astype(np.float64)
+    return (d[..., 0] * 255 * 255 + d[..., 1] * 255 + d[..., 2]) / float(scale)
+
+
+def depth_uint8_encoding(depth: np.ndarray, scale: float = 1000) -> np.ndarray:
+    """Inverse of :func:`depth_uint8_decoding` (for writing datasets)."""
+    v = np.round(depth.astype(np.float64) * scale).astype(np.int64)
+    c0 = v // (255 * 255)
+    rem = v - c0 * 255 * 255
+    c1 = rem // 255
+    c2 = rem - c1 * 255
+    return np.stack([c0, c1, c2], axis=-1).astype(np.uint8)
+
+
+def set_seed(seed: int) -> None:
+    """Seed numpy's and Python's global generators (the data pipeline's
+    sampling draws from Python's ``random``)."""
+    import random
+
+    np.random.seed(seed)
+    random.seed(seed)

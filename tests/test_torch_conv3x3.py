@@ -180,14 +180,23 @@ def test_conv3x3_rows_fills_the_card(f, h, w, images, rows):
     ((3, 3, 3), 2, 1, None),                    # spatial stride 2: not eligible
     ((1, 3, 3), 1, (0, 1, 1), None),            # C = 64 < 128: not eligible (below)
 ])
-def test_conv3d_forms_route_and_match(k, stride, pad, mode):
+def test_conv3d_forms_route_and_match(k, stride, pad, mode, monkeypatch):
     cin = 64 if mode is None and k[0] == 1 else 128
     m = Conv3d(cin, 64, k, stride, pad)
     m.enable_k4()
     assert m.k4 == mode
+    calls = []
+    conv = kernels.conv3x3
+    monkeypatch.setattr(kernels, "conv3x3", lambda *a: calls.append(1) or conv(*a))
     x = torch.randn(2, cin, 5, 6, 7, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         torch.testing.assert_close(m(x), m._conv_forward(x, m.weight, m.bias), rtol=0, atol=1e-5)
+    # one K4 call for the folded (1, 3, 3) conv, one per depth tap for the others
+    assert len(calls) == {"fold": 1, "taps": k[0], None: 0}[mode]
+    m.k4_on = False                         # as the model's forward sets it where it takes grads
+    with torch.no_grad():
+        m(x)
+    assert len(calls) == {"fold": 1, "taps": k[0], None: 0}[mode], "K4 ran with k4_on off"
 
 
 @pytest.mark.parametrize("shape,eligible", [

@@ -189,9 +189,8 @@ def test_forward_signature_is_the_jax_call():
 
 
 def test_forward_takes_the_jax_call_positionally():
-    """``model(l, r, iters, True, False)`` is the keyword call; the train-mode
-    forward (``test_mode=False``, the default, or ``train=True``) raises until
-    it is ported."""
+    """``model(l, r, iters, True, False)`` is the keyword call; ``train`` that
+    disagrees with the module's mode (``train()`` / ``eval()``) raises."""
     model = FoundationStereo(CFG, device="cpu")
     rng = np.random.default_rng(3)
     left, right = (torch.from_numpy(rng.uniform(0, 255, (1, H, W, 3)).astype(np.float32))
@@ -200,9 +199,12 @@ def test_forward_takes_the_jax_call_positionally():
         got = model(left, right, 1, True, False)
         want = model(left, right, iters=1, test_mode=True, low_memory=False)
         assert torch.equal(got, want)
-        for kwargs in ({}, {"test_mode": False}, {"test_mode": True, "train": True}):
-            with pytest.raises(NotImplementedError, match="train-mode"):
+        for kwargs in ({"train": True}, {"test_mode": True, "train": True}):
+            with pytest.raises(ValueError, match="eval mode"):
                 model(left, right, iters=1, **kwargs)
+        model.train()
+        with pytest.raises(ValueError, match="train mode"):
+            model(left, right, iters=1, test_mode=True)
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu():

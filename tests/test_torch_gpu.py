@@ -30,6 +30,7 @@ import torch
 from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.models.dinov2 import Attention
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+from foundationstereo_torch.models.layers import dropout_generator
 from foundationstereo_torch.ops import cost_volume, kernels, sampler, sharded
 from foundationstereo_torch.parallel import make_mesh, mesh_context
 
@@ -300,6 +301,45 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kernels.cost_volume_parts(x.transpose(2, 3).contiguous().transpose(2, 3), x,
                                   torch.zeros(1, 12, 4, 16, device=cuda), 8, 8)
+
+
+def test_kernels_refuse_inputs_that_need_a_backward(cuda):
+    """No kernel has a backward: a tensor that requires grad, with grad
+    enabled, raises instead of giving an output with no ``grad_fn``. A
+    forward that takes gradients, in train or eval mode, routes round every
+    kernel but the frozen ViT's attention."""
+    x = torch.zeros(1, 64, 4, 16, device=cuda, requires_grad=True)
+    rp = torch.zeros(1, 12, 4, 16, device=cuda)
+    geo = [torch.zeros(1, 4, 16, 3, 8, device=cuda, requires_grad=True)]
+    corr = [torch.zeros(1, 4, 16, 16, device=cuda)]
+    disp = torch.zeros(1, 4, 16, device=cuda)
+    conv_x = torch.zeros(1, 128, 4, 16, device=cuda)
+    w = torch.zeros(64, 128, 3, 3, device=cuda, requires_grad=True)
+    qkv = torch.zeros(1, 70, 3, 2, 64, device=cuda, requires_grad=True)
+    calls = [lambda: kernels.cost_volume_parts(x, x, rp, 8, 8),
+             lambda: kernels.disparity_lookup(geo, corr, disp, 1),
+             lambda: kernels.conv3x3(conv_x, w),
+             lambda: kernels.flash_attention(qkv, 0.125),
+             lambda: kernels.flash_attention_heads(qkv, 0.125, 0, 1)]
+    for call in calls:
+        with pytest.raises(ValueError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    model = FoundationStereo(ModelConfig(vit_size="vits", max_disp=64, pallas_conv3x3=True),
+                             device=cuda, seed=0)
+    left = torch.rand(1, 64, 96, 3, device=cuda, generator=torch.Generator(cuda).manual_seed(0))
+    kernels.reset_launches()
+    with torch.no_grad():
+        model(left, left.flip(2), iters=1, test_mode=False)
+    assert kernels.LAUNCHES["cost_volume_parts"] == 1 and kernels.LAUNCHES["conv3x3"] > 0
+    for train in (False, True):     # at 64x96 the ViT's few tokens take dense attention
+        model.train(train)
+        kernels.reset_launches()
+        with dropout_generator(torch.Generator(cuda).manual_seed(1)):
+            init_disp, preds = model(left, left.flip(2), iters=1, test_mode=False, train=train)
+        assert len(preds) == 1 and preds[0].requires_grad
+        assert not any(kernels.LAUNCHES.values()), kernels.LAUNCHES
 
 
 def _conv_inputs(cuda, seed, c, f, spatial, dtype):

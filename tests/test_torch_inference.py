@@ -207,8 +207,13 @@ def test_demo_cli_panorama_scaled(demo_assets):
 
 
 def test_demo_cli_refuses_checkpoints(tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpoints"):
+    """The demo reads only the port's own checkpoints: an empty directory
+    and the JAX package's orbax layout (a numbered step directory) raise."""
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
         demo.main(["--ckpt_dir", str(tmp_path), "--device", "cpu"])
+    (tmp_path / "2").mkdir()
+    with pytest.raises(ValueError, match="orbax"):
+        demo.main(["--ckpt_dir", str(tmp_path), "--device", "cpu", "--ema", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             demo.main(["--out_dir", str(tmp_path), "--device", "cuda"])

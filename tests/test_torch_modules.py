@@ -141,14 +141,15 @@ def test_update_block(rng):
 @pytest.mark.parametrize("kind", ["batch", "instance", "group", "layer"])
 def test_norms(rng, kind):
     """The four norms with their eps (batch 1e-5, instance 1e-5, group C/8
-    groups 1e-5, layer over channels 1e-6) against the JAX package's."""
+    groups 1e-5, layer over channels 1e-6) against the JAX package's, in
+    inference (eval mode: batch norm's running stats)."""
     from foundationstereo_torch.models import layers as tl
     from foundationstereo_tpu.models import layers as jl
 
     x = rng.standard_normal((2, 5, 6, 16)).astype(np.float32)
     jm = {"batch": jl.BatchNorm(), "instance": jl.InstanceNorm(),
           "group": jl.GroupNorm(num_groups=2), "layer": jl.LayerNorm2d()}[kind]
-    tm = tl.LayerNorm2d(16) if kind == "layer" else tl.make_norm(kind, 16)
+    tm = (tl.LayerNorm2d(16) if kind == "layer" else tl.make_norm(kind, 16)).eval()
     if kind == "instance":
         v = {}
     else:
