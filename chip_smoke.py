@@ -78,6 +78,23 @@ Phases:
               shard (1e-5) and stitched (bit for bit) on the same values.
               With two or more cards the same requests run with the shards
               on distinct cards and must give the same disparity.
+8. train   -- the train CLI on configs/train/stereo_v1.json (see
+              ``train_phase``).
+9. offline -- the offline entry points on the served configuration, from
+              seeded weights written by ``save_pretrained``: the directory
+              and a ``.pth`` through ``from_pretrained`` (disparity bit for
+              bit the in-memory model's); eval fixtures at the KITTI 2015
+              frame size (375x1242) through ``scripts.eval`` over the
+              Middlebury, ETH3D and KITTI 2015 layouts (32 iterations), one
+              ``--hiera 1`` and one ``--scale 0.5`` frame, with exact K1/K2/K3
+              launches per frame (``pass_launches``), finite summaries and
+              the JSONL rows; ``scripts.make_export`` at 448x672, 22
+              iterations, symbolic batch, whose loaded program at batch 1
+              and 2 launches what the eager forward launches and gives its
+              disparity (bit for bit, else mean <= 0.05 px, p99 <= 0.5 px);
+              the export's seconds and bytes, warm seconds per call of the
+              loaded program and the eager forward in turns, and the host's
+              microseconds per call of each ``torch.ops.fs`` operator.
 
 ``--profile`` adds a per-module and per-op time breakdown of one 736x1280 pair
 for the served configuration, for the one with the 3x3 conv kernel (with
@@ -90,7 +107,8 @@ launches (24 and 565).
 
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
-sharded requests for K5 and K3s) and, last, the ``{"ok": true, "device":
+sharded requests for K5 and K3s; ``offline_launches`` over the offline
+phase) and, last, the ``{"ok": true, "device":
 {...}}`` line. Any failed check raises, so the exit code is non-zero and no
 result line is printed. Without a CUDA device it exits with code 1 before
 any phase.
@@ -136,6 +154,13 @@ VIT_TOKENS = (784 // 14) * (1344 // 14) + 1
 TRAIN = dict(config="configs/train/stereo_v1.json", batch=2, steps=4, save_every=2,
              resume_steps=2, pairs=8, pair_hw=(400, 800))
 TRAIN_VIT_TOKENS = (784 // 14) * (336 // 14) + 1
+# The offline phase: eval fixtures at the KITTI 2015 frame size (2 frames per
+# layout, disparities up to 192), and the export at scripts/make_export.py's
+# shape and iteration count.
+OFFLINE = dict(eval_hw=(375, 1242), eval_frames=2, fixture_max_disp=192,
+               export_hw=(448, 672), export_iters=22)
+# The kernels the offline path runs (the served configuration: no K4).
+OFFLINE_KERNELS = ("cost_volume_parts", "disparity_lookup", "flash_attention")
 # K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
 # dtype). Every tile path of either type is among them.
 _H4, _W4 = MAIN["height"] // 4, MAIN["width"] // 4
@@ -1744,14 +1769,252 @@ def profile_train_step(trainer, state, batch) -> None:
     log(events.table(sort_by="self_device_time_total", row_limit=25, max_name_column_width=60))
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the offline entry points
+# ---------------------------------------------------------------------------
+
+
+def op_calls(kernels, dev) -> dict:
+    """One call of each kernel operator of ``kernels`` (this tree's module
+    or another checkout's) at a small bf16 shape, whose kernel is shorter
+    than the host's work per call: {name: fn}."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    feat, proj = rand(1, 32, 4, 64), rand(1, 12, 4, 64)
+    half = feat[..., 32:].contiguous()
+    geo = [rand(1, 4, 32, 8, 26 >> lv) for lv in range(4)]
+    corr = [rand(1, 4, 32, 32 >> lv) for lv in range(4)]
+    disp = torch.rand((1, 4, 32), device=dev, generator=gen) * 20
+    qkv = rand(1, 64, 3, 4, 64)
+    x, w, bias = rand(1, 128, 8, 64), rand(64, 128, 3, 3, dtype=torch.float32), rand(64)
+    packed = kernels.pack_conv3x3_weight(w, bf)
+    return {
+        "cost_volume_parts": lambda: kernels.cost_volume_parts(feat, feat, proj, 8, 8, out_dtype=bf),
+        "cost_volume_parts_haloed": lambda: kernels.cost_volume_parts_haloed(
+            half, feat, proj, 8, 8, 32, out_dtype=bf),
+        "disparity_lookup": lambda: kernels.disparity_lookup(geo, corr, disp, 4, out_dtype=bf),
+        "disparity_lookup_shard": lambda: kernels.disparity_lookup_shard(
+            geo, corr, disp, 4, 0, out_dtype=bf),
+        "flash_attention": lambda: kernels.flash_attention(qkv, 0.125),
+        "flash_attention_heads": lambda: kernels.flash_attention_heads(qkv, 0.125, 1, 2),
+        "conv3x3": lambda: kernels.conv3x3(x, w, bias, packed),
+    }
+
+
+def pass_launches(h: int, w: int, iters: int, depth: int) -> dict:
+    """K1, K2 and K3 launches of one test-mode pass on a padded h x w pair:
+    the ViT runs K3 in each of its ``depth`` layers only where its input,
+    rounded up to multiples of 112 (at most 1344), has over 1024 patches
+    of 14 (``models/extractor.py``, ``models/dinov2.py``)."""
+    from foundationstereo_torch.utils.misc import get_resize_keep_aspect_ratio
+
+    hr, wr = get_resize_keep_aspect_ratio(h, w, divider=112, max_H=1344, max_W=1344)
+    tokens = (hr // 14) * (wr // 14) + 1
+    return {"cost_volume_parts": 1, "disparity_lookup": iters,
+            "flash_attention": depth if tokens > 1024 else 0}
+
+
+def _launched_since(before: dict) -> dict:
+    from foundationstereo_torch.ops import kernels
+
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items() if v - before[k]}
+
+
+def profile_call(label: str, fn) -> None:
+    """One call under torch.profiler: wall ms, device busy ms, kernel
+    launches on the card and aten operator calls on the host."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    aten = sum(e.count for e in events
+               if e.device_type == torch.autograd.DeviceType.CPU and e.key.startswith("aten::"))
+    log(f"[profile] {label} under the profiler: wall {wall:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall:.1f} %), {sum(e.count for e in kern)} kernel launches, {aten} aten "
+        f"calls on the host")
+
+
+def offline_phase(dev, profile: bool = False) -> dict:
+    """This slice's path: the offline entry points on the served
+    configuration (ViT-L, max_disp 416, bf16) with seeded random weights
+    written by ``save_pretrained``. Checkpoints: the directory and a
+    ``.pth`` beside a ``config.json`` load through ``from_pretrained`` to a
+    model whose disparity equals the in-memory model's bit for bit.
+    Evaluation: fixtures at the KITTI 2015 frame size through the eval CLI
+    over three layouts (32 iterations), one ``--hiera 1`` and one ``--scale
+    0.5`` frame, with exact K1/K2/K3 launches per frame, finite summaries and
+    the JSONL rows. Export: ``make_export`` with a symbolic batch; the loaded
+    program at batch 1 and 2 launches what the eager forward launches and
+    gives its disparity. Then the host's cost per call of each operator.
+    ``profile`` adds one eager and one loaded call at batch 1 under
+    torch.profiler. Returns the phase's launches."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.inference.demo import run_pair
+    from foundationstereo_torch.inference.export import load_exported
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.pretrained import from_pretrained, save_pretrained
+    from foundationstereo_torch.scripts import eval as eval_cli
+    from foundationstereo_torch.scripts import make_eval_fixtures, make_export
+
+    cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=True)
+    depth = VIT_CONFIGS[cfg.vit_size]["depth"]
+    kernels.reset_launches()
+    model = FoundationStereo(cfg, device=dev, seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # Checkpoints: the directory route and a reference-layout .pth.
+        t0 = time.perf_counter()
+        save_pretrained(tmp / "ckpt", model, cfg)
+        (tmp / "pth").mkdir()
+        torch.save({"model": model.state_dict()}, tmp / "pth" / "model.pth")
+        (tmp / "pth" / "config.json").write_text(json.dumps({"model": dataclasses.asdict(cfg)}))
+        log(f"[offline] checkpoints written in {time.perf_counter() - t0:.1f} s "
+            f"({(tmp / 'pth' / 'model.pth').stat().st_size / 2 ** 30:.2f} GiB each)")
+        h, w = OFFLINE["eval_hw"]
+        left, right = make_pair(h, w, 400)
+        want = run_pair(model, left, right, iters=MAIN["iters"])
+        for route, path in (("directory", tmp / "ckpt"), (".pth", tmp / "pth" / "model.pth")):
+            t0 = time.perf_counter()
+            loaded, loaded_cfg = from_pretrained(path, device=dev)
+            secs = time.perf_counter() - t0
+            got = run_pair(loaded, left, right, iters=MAIN["iters"])
+            equal = bool(torch.equal(got, want))
+            log(f"[offline] from_pretrained({route}) in {secs:.1f} s: disparity of a {h}x{w} pair "
+                f"equal to the in-memory model's bit for bit {equal}")
+            check(loaded_cfg == cfg, f"{route}: config {loaded_cfg}")
+            check(equal, f"{route}: the loaded model's disparity differs")
+            del loaded
+        torch.cuda.empty_cache()
+
+        # Evaluation over the benchmark layouts.
+        fix = tmp / "fixtures"
+        t0 = time.perf_counter()
+        make_eval_fixtures.main(["--out", str(fix), "--n", str(OFFLINE["eval_frames"]),
+                                 "--height", str(h), "--width", str(w),
+                                 "--max_disp", str(OFFLINE["fixture_max_disp"])])
+        log(f"[offline] fixtures {h}x{w} written in {time.perf_counter() - t0:.1f} s")
+        hp, wp = -(-h // 32) * 32, -(-w // 32) * 32
+        one = pass_launches(hp, wp, MAIN["iters"], depth)
+        sh, sw = int(h * 0.5), int(w * 0.5)
+        half = pass_launches(-(-sh // 32) * 32, -(-sw // 32) * 32, MAIN["iters"], depth)
+        runs = [(ds, [], OFFLINE["eval_frames"], one) for ds in ("middlebury", "eth3d", "kitti2015")]
+        runs += [("kitti2015", ["--hiera", "1"], 1, {k: one[k] + half[k] for k in one}),
+                 ("middlebury", ["--scale", "0.5"], 1, half)]
+        for ds, extra, frames, per_frame in runs:
+            out = tmp / f"{ds}{''.join(extra)}.jsonl"
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            rows, summary = eval_cli.main(
+                ["--dataset", ds, "--root", str(fix / ds), "--ckpt_dir", str(tmp / "ckpt"),
+                 "--valid_iters", str(MAIN["iters"]), "--vit_size", cfg.vit_size,
+                 "--max_disp", str(cfg.max_disp), "--max_frames", str(frames), "--out", str(out),
+                 "--device", str(dev), *extra])
+            secs = time.perf_counter() - t0
+            got = _launched_since(before)
+            want_l = {k: v * frames for k, v in per_frame.items() if v}
+            lines = [json.loads(line) for line in out.read_text().splitlines()]
+            log(f"[offline] eval {ds} {' '.join(extra)}: {len(rows)} frames of {h}x{w}, s per frame "
+                f"{[r['time_s'] for r in rows]} ({secs:.1f} s with the model's load), epe "
+                f"{summary['epe']:.4g}, bad3 {summary['bad3']:.4g}, d1_all {summary['d1_all']:.4g}, "
+                f"launches {got}")
+            check(got == want_l, f"eval {ds} {extra}: launches {got}, expected {want_l}")
+            check(summary["frames"] == frames and all(
+                math.isfinite(summary[k]) for k in eval_cli.METRICS), f"eval summary {summary}")
+            check([r["type"] for r in lines] == ["frame"] * frames + ["summary"],
+                  f"eval {ds}: JSONL rows {[r['type'] for r in lines]}")
+
+        # Export with a symbolic batch, loaded and run against the eager forward.
+        eh, ew, iters = OFFLINE["export_hw"] + (OFFLINE["export_iters"],)
+        path = tmp / "export" / "model.pt2"
+        t0 = time.perf_counter()
+        make_export.main(["--save_path", str(path), "--ckpt_dir", str(tmp / "ckpt"),
+                          "--height", str(eh), "--width", str(ew), "--iters", str(iters),
+                          "--vit_size", cfg.vit_size, "--max_disp", str(cfg.max_disp),
+                          "--dynamic_batch", "1", "--device", str(dev)])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = load_exported(path)
+        load_s = time.perf_counter() - t0
+        calls = [n for n in program.graph.nodes if n.op == "call_function"]
+        nodes = sum(1 for n in calls if str(n.target).startswith("fs."))
+        log(f"[offline] export {eh}x{ew}, {iters} iterations, symbolic batch: {export_s:.1f} s, "
+            f"{path.stat().st_size} bytes, loaded in {load_s:.1f} s, {len(calls)} operator calls "
+            f"in the graph, {nodes} of them fs::")
+        per_call = {k: v for k, v in pass_launches(eh, ew, iters, depth).items() if v}
+        for b in (1, 2):
+            pairs = [make_pair(eh, ew, 500 + i) for i in range(b)]
+            pair = [torch.from_numpy(np.concatenate([p[j] for p in pairs])).to(dev) for j in (0, 1)]
+            with torch.inference_mode():
+                before = dict(kernels.LAUNCHES)
+                eager = model(*pair, iters=iters, test_mode=True)
+                eager_l = _launched_since(before)
+                before = dict(kernels.LAUNCHES)
+                got = program(*pair)
+                loaded_l = _launched_since(before)
+                times = {"eager": [], "loaded": []}
+                for label in ("eager", "loaded", "loaded", "eager"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    (model(*pair, iters=iters, test_mode=True) if label == "eager"
+                     else program(*pair))
+                    torch.cuda.synchronize()
+                    times[label].append(time.perf_counter() - t0)
+            diff = (got.float() - eager.float()).abs()
+            equal = bool(torch.equal(got, eager))
+            mean, p99 = float(diff.mean()), float(torch.quantile(diff.flatten(), 0.99))
+            log(f"[offline] batch {b}: loaded program launches {loaded_l}, eager {eager_l}; "
+                f"disparity equal bit for bit {equal} (max |d disp| {float(diff.max()):.4g} px, mean "
+                f"{mean:.4g}, p99 {p99:.4g}); warm s per call in turns (eager, loaded, loaded, "
+                f"eager) {[round(t, 4) for t in (times['eager'][0], *times['loaded'], times['eager'][1])]}")
+            check(tuple(got.shape) == (b, eh, ew) and bool(torch.isfinite(got).all()),
+                  f"loaded program output {tuple(got.shape)}")
+            check(loaded_l == eager_l == per_call, f"batch {b}: launches loaded {loaded_l}, eager "
+                  f"{eager_l}, expected {per_call}")
+            check(equal or (mean <= 0.05 and p99 <= 0.5), f"batch {b}: loaded program disagrees")
+            if profile and b == 1:
+                with torch.inference_mode():
+                    profile_call("eager forward, batch 1",
+                                 lambda: model(*pair, iters=iters, test_mode=True))
+                    profile_call("loaded program, batch 1", lambda: program(*pair))
+        del program
+    launches = dict(kernels.LAUNCHES)
+    log(f"[offline] launches {launches}")
+    for name, fn in op_calls(kernels, dev).items():
+        log(f"[offline] host time per call of fs::{name}: {host_us_per_call(fn):.1f} us")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh,train",
-                    help="comma-separated subset of env,build,kernels,path,serve,demo,mesh,train")
+    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh,train,offline",
+                    help="comma-separated subset of "
+                         "env,build,kernels,path,serve,demo,mesh,train,offline")
     ap.add_argument("--profile", action="store_true",
                     help="time one more 736x1280 pair per module and under torch.profiler, for "
                          "the served configuration, the one with the 3x3 conv kernel and the "
-                         "served one under the mesh")
+                         "served one under the mesh; one train step per module; one eager and "
+                         "one exported call under torch.profiler")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
 
@@ -1812,13 +2075,22 @@ def main() -> int:
         train_launches = train_phase(dev, args.profile)
         log(f"[train] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+    offline_launches = {}
+    if "offline" in phases:
+        t0 = time.perf_counter()
+        offline_launches = offline_phase(dev, args.profile)
+        log(f"[offline] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     by_phase = {"demo": launches, "mesh": mesh_launches, "train": train_launches}
     for row in rows:
         row.setdefault("phase", "demo")
         row["launches"] = by_phase[row["phase"]].get(row["name"], 0)
         row["serve_launches"] = served.get(row["name"], 0)
+        row["offline_launches"] = offline_launches.get(row["name"], 0)
         if row["phase"] in phases:
             check(row["launches"] > 0, f"{row['name']} never launched on the {row['phase']} path")
+        if "offline" in phases and row["name"] in OFFLINE_KERNELS and row["phase"] == "demo":
+            check(row["offline_launches"] > 0, f"{row['name']} never launched on the offline path")
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,16 +13,16 @@ request of the demo on numpy images (optional ``--scale``, one pass or the
 cameras the depth and the point cloud with outlier removal), writing
 ``depth_meter.npy``, ``cloud.ply`` and ``cloud_denoise.ply``; ``main`` adds
 the image and ``vis.png`` I/O (PIL, imported only there) and builds the
-model: from a checkpoint directory of the port's trainer (``--ckpt_dir``,
-its ``config.json`` and latest step, ``--ema 1`` for the EMA weights), or
-with seeded random weights.
+model: from a checkpoint directory of the port's trainer through
+``pretrained.from_pretrained`` (``--ckpt_dir``, its ``config.json`` and
+latest step, ``--ema 1`` for the EMA weights), or with seeded random
+weights.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
-import json
 import logging
 import os
 import time
@@ -150,6 +150,7 @@ def load_image(path: str) -> np.ndarray:
 def main(argv=None) -> dict:
     from foundationstereo_torch.config import ModelConfig
     from foundationstereo_torch.models.foundation_stereo import FoundationStereo, resolve_device
+    from foundationstereo_torch.pretrained import from_pretrained
 
     ap = argparse.ArgumentParser(description="FoundationStereo demo on PyTorch")
     ap.add_argument("--left_file", default=None, type=str)
@@ -195,21 +196,16 @@ def main(argv=None) -> dict:
     os.makedirs(args.out_dir, exist_ok=True)
 
     overrides = {k: v for k, v in (("vit_size", args.vit_size), ("max_disp", args.max_disp)) if v}
-    base, sd = {"vit_size": "vits", "max_disp": 192}, None
+    device = resolve_device(args.device)
     if args.ckpt_dir:
-        from foundationstereo_torch.train.checkpoints import CheckpointManager
-
-        sd, step = CheckpointManager(args.ckpt_dir).restore_inference(
-            "latest", use_ema=bool(args.ema))
-        cfg_path = Path(args.ckpt_dir) / "config.json"
-        base = json.loads(cfg_path.read_text()).get("model", {}) if cfg_path.exists() else {}
-    cfg = ModelConfig.from_dict({**base, **overrides})
-    model = FoundationStereo(cfg, device=resolve_device(args.device), seed=0)
-    if sd is not None:
-        model.load_state_dict(sd)
-        log.info(f"restored checkpoint step {step} from {args.ckpt_dir}"
+        if not Path(args.ckpt_dir).is_dir():
+            raise FileNotFoundError(f"--ckpt_dir {args.ckpt_dir} is not a checkpoint directory")
+        model, _ = from_pretrained(args.ckpt_dir, ema=bool(args.ema), device=device, **overrides)
+        log.info(f"restored the latest checkpoint from {args.ckpt_dir}"
                  f"{' (EMA weights)' if args.ema else ''}")
     else:
+        cfg = ModelConfig.from_dict({"vit_size": "vits", "max_disp": 192, **overrides})
+        model = FoundationStereo(cfg, device=device, seed=0)
         log.info("no checkpoint: seeded random weights")
 
     img0, img1 = load_image(args.left_file), load_image(args.right_file)

@@ -91,13 +91,16 @@ class PackedWeights:
     """Weights derived from parameters (cast, fused or packed for K4), made
     once and made again when a source parameter changes (its ``_version``),
     moves (its storage) or the compute dtype differs; made anew in each call,
-    under autograd, where gradients flow to the parameters."""
+    under autograd, where gradients flow to the parameters, and while
+    ``torch.export`` or ``torch.compile`` traces (a traced tensor has no
+    storage to key on, and the graph must hold the derivation)."""
 
     def __init__(self):
         self.key, self.value = None, None
 
     def __call__(self, params, extra, make):
-        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+        if torch.compiler.is_compiling() or (
+                torch.is_grad_enabled() and any(p.requires_grad for p in params)):
             return make()
         key = tuple((p._version, p.data_ptr(), p.device) for p in params) + tuple(extra)
         if key != self.key:

@@ -25,13 +25,19 @@ CUDA call (all sources at once, one ``nvcc`` each, in parallel) into
 ``foundationstereo_torch/_build/``; a library's file name carries the hash of
 its source, so an edited source is rebuilt. A failed build or load raises.
 
-On a CPU tensor a wrapper runs its kernel's plain PyTorch twin; on a CUDA
-tensor it launches the kernel on that tensor's device, under its device
-guard and on its current stream (and adds one to ``LAUNCHES[name]``), or
-raises. The kernels have no backward: given a tensor that requires grad
-while grad is enabled, a wrapper raises on the card (the twins on the CPU
-are differentiable); ``flash_attention``, forward-only in the JAX package
-too (the frozen ViT), raises on either device.
+Each wrapper is an operator of the ``fs`` namespace (``torch.ops.fs.<name>``,
+defined with ``torch.library.Library``; the module's names are their
+``.default`` overloads), so the dispatcher picks the kernel by the tensors'
+device and ``torch.export`` keeps each call as one opaque node. Its CPU
+kernel runs the plain PyTorch twin; its CUDA kernel launches the
+hand-written kernel on the tensors' device, under its device guard and on
+its current stream (and adds one to ``LAUNCHES[name]``), or raises; its
+shape function gives the outputs' shapes and dtypes from the inputs'
+(the batch stays symbolic under export). The operators have no backward
+(nor do the JAX package's Pallas kernels: its training takes the XLA
+forms): given a tensor that requires grad while grad is enabled, each
+raises, on either device; the model's differentiable route calls the
+twins directly (``models/foundation_stereo.py:kernel_mode``).
 
 Each C entry point reports the grid it launched (``COST_VOLUME_LAUNCHED``,
 ``LOOKUP_LAUNCHED``, ``FLASH_ATTENTION_LAUNCHED``, ``CONV3X3_LAUNCHED``);
@@ -198,12 +204,9 @@ def _forward_only(name: str, *tensors: torch.Tensor | None) -> None:
              "that do not require grad")
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
+def _one_device(*tensors: torch.Tensor) -> None:
     devs = {t.device for t in tensors}
     _require(len(devs) == 1, f"tensors on mixed devices {devs}")
-    dev = devs.pop().type
-    _require(dev in ("cpu", "cuda"), f"unsupported device {dev}")
-    return dev == "cuda"
 
 
 _FLOATS = (torch.float32, torch.bfloat16)
@@ -214,27 +217,27 @@ _FLOATS = (torch.float32, torch.bfloat16)
 # ---------------------------------------------------------------------------
 
 
-def cost_volume_parts(left: torch.Tensor, right: torch.Tensor, right_proj: torch.Tensor,
-                      maxdisp: int, num_groups: int,
-                      out_dtype: torch.dtype = torch.float32):
+def _cost_volume_parts_cuda(left, right, right_proj, maxdisp, num_groups,
+                            out_dtype=torch.float32):
     """left/right (B, C, H, W), right_proj (B, P, H, W) -> gwc (B, G, D, H, W),
     rps (B, P, D, H, W) in ``out_dtype``; see ``ops.cost_volume.cost_volume_parts``."""
-    if not _on_cuda(left, right, right_proj):
-        return cost_volume_parts_plain(left, right, right_proj, maxdisp, num_groups, out_dtype)
     return _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, None)
 
 
-def cost_volume_parts_haloed(left: torch.Tensor, right: torch.Tensor, right_proj: torch.Tensor,
-                             maxdisp: int, num_groups: int, x_offset: int,
-                             out_dtype: torch.dtype = torch.float32):
+def _cost_volume_parts_haloed_cuda(left, right, right_proj, maxdisp, num_groups, x_offset,
+                                   out_dtype=torch.float32):
     """One width shard (K5's build): left (B, C, H, W_local), the global
     columns [x_offset, x_offset + W_local); right (B, C, H, W) and
     right_proj (B, P, H, W) full width -> gwc (B, G, D, H, W_local), rps
     (B, P, D, H, W_local); see ``ops.cost_volume.cost_volume_parts_haloed``."""
-    if not _on_cuda(left, right, right_proj):
-        return cost_volume_parts_haloed_plain(left, right, right_proj, maxdisp, num_groups,
-                                              x_offset, out_dtype)
     return _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset)
+
+
+def _cost_volume_parts_fake(left, right, right_proj, maxdisp, num_groups,
+                            out_dtype=torch.float32):
+    b, _, h, w = left.shape
+    return (left.new_empty((b, num_groups, maxdisp, h, w), dtype=out_dtype),
+            left.new_empty((b, right_proj.shape[1], maxdisp, h, w), dtype=out_dtype))
 
 
 # The cost-volume kernel's thread tile (output columns x disparities), the
@@ -270,6 +273,7 @@ def cost_volume_grid(b: int, h: int, w: int, d: int, groups: int, p: int) -> tup
 
 def _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offset):
     _forward_only("the cost-volume kernel", left, right, right_proj)
+    _one_device(left, right, right_proj)
     b, c, h, w = left.shape
     wr = right.shape[-1]
     p = right_proj.shape[1]
@@ -307,28 +311,26 @@ def _cost_volume(left, right, right_proj, maxdisp, num_groups, out_dtype, x_offs
 # ---------------------------------------------------------------------------
 
 
-def disparity_lookup(geo_pyramid: list[torch.Tensor], corr_pyramid: list[torch.Tensor],
-                     disp: torch.Tensor, radius: int,
-                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def _disparity_lookup_cuda(geo_pyramid, corr_pyramid, disp, radius, out_dtype=torch.float32):
     """geo levels (B, H, W, C, D_l), corr levels (B, H, W, W_l), disp (B, H, W)
     -> (B, L*(C+1)*(2r+1), H, W); see ``ops.sampler.disparity_lookup``."""
-    if not _on_cuda(disp, *geo_pyramid, *corr_pyramid):
-        return disparity_lookup_plain(geo_pyramid, corr_pyramid, disp, radius, out_dtype)
     return _lookup("disparity_lookup", geo_pyramid, corr_pyramid, disp, radius, out_dtype, 0)
 
 
-def disparity_lookup_shard(geo_pyramid: list[torch.Tensor], corr_pyramid: list[torch.Tensor],
-                           disp: torch.Tensor, radius: int, x_offset: int,
-                           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+def _disparity_lookup_shard_cuda(geo_pyramid, corr_pyramid, disp, radius, x_offset,
+                                 out_dtype=torch.float32):
     """One width shard (K5's lookup): the W_local left columns from global
     column ``x_offset`` on -- geo levels (B, H, W_local, C, D_l), corr levels
     (B, H, W_local, W_l) with the full right axis, disp (B, H, W_local) ->
     (B, F, H, W_local); see ``ops.sampler.disparity_lookup``."""
-    if not _on_cuda(disp, *geo_pyramid, *corr_pyramid):
-        return disparity_lookup_plain(geo_pyramid, corr_pyramid, disp, radius, out_dtype,
-                                      x_offset)
     return _lookup("disparity_lookup_shard", geo_pyramid, corr_pyramid, disp, radius, out_dtype,
                    x_offset)
+
+
+def _disparity_lookup_fake(geo_pyramid, corr_pyramid, disp, radius, out_dtype=torch.float32):
+    b, h, w = disp.shape
+    f = len(geo_pyramid) * (geo_pyramid[0].shape[3] + 1) * (2 * radius + 1)
+    return disp.new_empty((b, f, h, w), dtype=out_dtype)
 
 
 # The lookup kernel's block: threads, each serving this many adjacent
@@ -349,6 +351,7 @@ def lookup_grid(b: int, h: int, w: int, levels: int, c: int) -> tuple[int, int, 
 
 def _lookup(name, geo_pyramid, corr_pyramid, disp, radius, out_dtype, x_offset):
     _forward_only(name, disp, *geo_pyramid, *corr_pyramid)
+    _one_device(disp, *geo_pyramid, *corr_pyramid)
     b, h, w = disp.shape
     n = len(geo_pyramid)
     c = geo_pyramid[0].shape[3]
@@ -393,25 +396,27 @@ def flash_attention_plain(qkv: torch.Tensor, scale: float) -> torch.Tensor:
     return torch.einsum("bhnm,bmhd->bnhd", w, v.float()).to(qkv.dtype)
 
 
-def flash_attention(qkv: torch.Tensor, scale: float) -> torch.Tensor:
+def _flash_attention_cuda(qkv, scale):
     """Softmax attention from the packed projection qkv (B, N, 3, H, 64) ->
     (B, N, H, 64) in qkv's dtype: bfloat16 products in one tensor-core pass,
     float32 in three TF32 passes. Forward only, as the JAX package runs it
-    (the frozen ViT): a qkv that requires grad while grad is enabled raises,
-    on either device."""
-    _forward_only("flash_attention", qkv)
-    if not _on_cuda(qkv):
-        return flash_attention_plain(qkv, scale)
+    (the frozen ViT)."""
     return _attention("flash_attention", qkv, scale, 0, qkv.shape[3])
 
 
-def flash_attention_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int) -> torch.Tensor:
+def _flash_attention_heads_cuda(qkv, scale, h0, n_heads):
     """One head shard (K3s): attention over the heads [h0, h0 + n_heads) of
     qkv (B, N, 3, H, 64), read in place -> (B, N, n_heads, 64)."""
-    if not _on_cuda(qkv):
-        return flash_attention_plain(qkv[:, :, :, h0:h0 + n_heads], scale)
-    _forward_only("flash_attention_heads", qkv)
     return _attention("flash_attention_heads", qkv, scale, h0, n_heads)
+
+
+def _flash_attention_heads_plain(qkv, scale, h0, n_heads):
+    return flash_attention_plain(qkv[:, :, :, h0:h0 + n_heads], scale)
+
+
+def _flash_attention_heads_fake(qkv, scale, h0, n_heads):
+    b, n, _, _, hd = qkv.shape
+    return qkv.new_empty((b, n, n_heads, hd))
 
 
 # Query rows per block: 3 consumer warpgroups of 64 (bf16), 2 (fp32).
@@ -428,6 +433,7 @@ def flash_attention_blocks(n: int, pairs: int, dtype: torch.dtype = torch.bfloat
 
 
 def _attention(name, qkv, scale, h0, n_heads):
+    _forward_only(name, qkv)
     b, n, three, heads, hd = qkv.shape
     _require(three == 3 and hd == 64, f"qkv shape {tuple(qkv.shape)}: want (B, N, 3, H, 64)")
     _require(qkv.dtype in _FLOATS and qkv.is_contiguous() and qkv.data_ptr() % 16 == 0,
@@ -578,8 +584,7 @@ def _sm_count(device: torch.device) -> int:
     return _sms[index]
 
 
-def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None,
-            packed: torch.Tensor | None = None) -> torch.Tensor:
+def _conv3x3_cuda(x, weight, bias=None, packed=None):
     """3x3 / stride 1 / zero padding 1 convolution with fp32 accumulation.
 
     x (N, C, H, W), or (B, C, D, H, W) with D taken as a batch axis (read
@@ -590,9 +595,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
     Both types run a wgmma kernel with the rows ``conv3x3_rows`` picks:
     bfloat16 products in one pass, float32 in three TF32 passes.
     """
-    if not _on_cuda(x, weight):
-        return conv3x3_plain(x, weight, bias)
     _forward_only("conv3x3", x, weight, bias)
+    _one_device(x, weight)
     _require(x.ndim in (4, 5), f"x shape {tuple(x.shape)}: want (N, C, H, W) or (B, C, D, H, W)")
     _require(x.dtype in _FLOATS, "x must be float32 or bfloat16")
     f, c = weight.shape[:2]
@@ -629,3 +633,83 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = N
             c, h, w, f, cp, fp, pack_n, rows, int(bf16), launched)
     CONV3X3_LAUNCHED.update(grid=tuple(launched[:3]), tile=tuple(launched[3:]))
     return out
+
+
+def _conv3x3_plain_op(x, weight, bias=None, packed=None):
+    return conv3x3_plain(x, weight, bias)
+
+
+def _conv3x3_fake(x, weight, bias=None, packed=None):
+    return x.new_empty((x.shape[0], weight.shape[0]) + tuple(x.shape[2:]))
+
+
+# ---------------------------------------------------------------------------
+# The operators: one path in eager mode and under torch.export
+# ---------------------------------------------------------------------------
+
+# The operators' namespace. A second copy of this module (another
+# checkout's, loaded by path to be timed beside this one, as
+# ``tools/k4_timing.py:load_kernels`` does) is given another.
+NAMESPACE = "fs"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def _tensors(args) -> list[torch.Tensor]:
+    out = []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            out.append(a)
+        elif isinstance(a, (list, tuple)):
+            out += [t for t in a if isinstance(t, torch.Tensor)]
+    return out
+
+
+def _twin(name: str, plain):
+    """The CPU kernel of operator ``name``: its plain twin, refusing tensors
+    that need a backward (the operators have none) and returning contiguous
+    outputs, the strides the shape function gives."""
+    def run(*args):
+        _forward_only(name, *_tensors(args))
+        out = plain(*args)
+        return tuple(o.contiguous() for o in out) if isinstance(out, tuple) else out.contiguous()
+    return run
+
+
+def _define(schema: str, plain, cuda, fake):
+    """Define ``fs::<name>`` with ``plain`` as its CPU kernel, ``cuda`` as its
+    CUDA kernel and ``fake`` as its shape function; returns the operator."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, _twin(name, plain), "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default
+
+
+_CV = "Tensor left, Tensor right, Tensor right_proj, int maxdisp, int num_groups"
+_LK = "Tensor[] geo_pyramid, Tensor[] corr_pyramid, Tensor disp, int radius"
+cost_volume_parts = _define(
+    f"cost_volume_parts({_CV}, ScalarType out_dtype=float) -> (Tensor, Tensor)",
+    cost_volume_parts_plain, _cost_volume_parts_cuda, _cost_volume_parts_fake)
+cost_volume_parts_haloed = _define(
+    f"cost_volume_parts_haloed({_CV}, int x_offset, ScalarType out_dtype=float) -> (Tensor, Tensor)",
+    cost_volume_parts_haloed_plain, _cost_volume_parts_haloed_cuda,
+    lambda l, r, rp, d, g, x0, dt=torch.float32: _cost_volume_parts_fake(l, r, rp, d, g, dt))
+disparity_lookup = _define(
+    f"disparity_lookup({_LK}, ScalarType out_dtype=float) -> Tensor",
+    disparity_lookup_plain, _disparity_lookup_cuda, _disparity_lookup_fake)
+disparity_lookup_shard = _define(
+    f"disparity_lookup_shard({_LK}, int x_offset, ScalarType out_dtype=float) -> Tensor",
+    lambda g, c, d, r, x0, dt=torch.float32: disparity_lookup_plain(g, c, d, r, dt, x0),
+    _disparity_lookup_shard_cuda,
+    lambda g, c, d, r, x0, dt=torch.float32: _disparity_lookup_fake(g, c, d, r, dt))
+flash_attention = _define(
+    "flash_attention(Tensor qkv, float scale) -> Tensor",
+    lambda qkv, scale: flash_attention_plain(qkv, scale), _flash_attention_cuda,
+    lambda qkv, scale: _flash_attention_heads_fake(qkv, scale, 0, qkv.shape[3]))
+flash_attention_heads = _define(
+    "flash_attention_heads(Tensor qkv, float scale, int h0, int n_heads) -> Tensor",
+    _flash_attention_heads_plain, _flash_attention_heads_cuda, _flash_attention_heads_fake)
+conv3x3 = _define(
+    "conv3x3(Tensor x, Tensor weight, Tensor? bias=None, Tensor? packed=None) -> Tensor",
+    _conv3x3_plain_op, _conv3x3_cuda, _conv3x3_fake)

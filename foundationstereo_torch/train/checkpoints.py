@@ -93,6 +93,15 @@ class CheckpointManager:
         t.start()
         self._threads.append(t)
 
+    def save_model(self, step: int, model: torch.nn.Module, config: dict) -> None:
+        """Write a model alone (no optimizer, no EMA) at ``step``, with its
+        ``config.json``, and wait for the files."""
+        self.wait()
+        (self.directory / "config.json").write_text(json.dumps(config, indent=2))
+        _atomic_save({"model": _to_host(model.state_dict()), "global_step": step},
+                     self.directory / f"{step}.pt")
+        _atomic_save({"step": step}, self.directory / "latest.pt")
+
     def steps(self) -> list[int]:
         return sorted(int(m.group(1)) for p in self.directory.iterdir()
                       if (m := _STEP_FILE.match(p.name)))

@@ -216,8 +216,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 def test_port_imports_no_jax():
     """Every module of the port, chip_smoke.py, tools/k4_timing.py,
-    tools/k3_timing.py and tools/k1_k2_timing.py, in a fresh interpreter
-    where importing jax or the JAX package raises."""
+    tools/k3_timing.py, tools/k1_k2_timing.py and tools/op_overhead.py, in a
+    fresh interpreter where importing jax or the JAX package raises."""
     code = r"""
 import importlib, importlib.util, pkgutil, sys
 
@@ -232,7 +232,7 @@ names = [m.name for m in pkgutil.walk_packages(foundationstereo_torch.__path__,
                                                "foundationstereo_torch.")]
 for n in names:
     importlib.import_module(n)
-for tool in ("k4_timing", "k3_timing", "k1_k2_timing"):
+for tool in ("k4_timing", "k3_timing", "k1_k2_timing", "op_overhead"):
     spec = importlib.util.spec_from_file_location(tool, f"tools/{tool}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "foundationstereo_tpu")]
@@ -276,6 +276,15 @@ def test_k1_k2_timing_fails_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     out = subprocess.run([sys.executable, "tools/k1_k2_timing.py"], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+
+
+def test_op_overhead_fails_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, "tools/op_overhead.py"], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr

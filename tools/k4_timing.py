@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import importlib.util
+import types
 import subprocess
 import sys
 from pathlib import Path
@@ -54,11 +54,13 @@ def unqueued_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def load_kernels(checkout: Path):
     """The ``kernels`` module of another checkout, loaded by path (its plain
-    twins come from this tree's package)."""
+    twins come from this tree's package); where it defines operators, they
+    go into a namespace of their own (``fs_against``)."""
     path = checkout.resolve() / "foundationstereo_torch" / "ops" / "kernels.py"
-    spec = importlib.util.spec_from_file_location("k4_timing_other_kernels", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    source = path.read_text().replace('\nNAMESPACE = "fs"\n', '\nNAMESPACE = "fs_against"\n')
+    mod = types.ModuleType("k4_timing_other_kernels")
+    mod.__file__ = str(path)
+    exec(compile(source, str(path), "exec"), mod.__dict__)
     return mod
 
 
