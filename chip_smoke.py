@@ -78,9 +78,27 @@ Phases:
               shard (1e-5) and stitched (bit for bit) on the same values.
               With two or more cards the same requests run with the shards
               on distinct cards and must give the same disparity.
-8. train   -- the train CLI on configs/train/stereo_v1.json (see
-              ``train_phase``).
-9. offline -- the offline entry points on the served configuration, from
+8. train   -- the train CLI on configs/train/stereo_v1.json with
+              ``--n_devices 1`` (see ``train_phase``).
+9. dp      -- data-parallel training at the same width: one
+              ``Trainer.train_step`` on a global batch of 2 from the
+              pipeline in one process, then in 2 spawned ranks that share
+              card 0 over ``gloo`` (and, with two or more cards, in 2 ranks
+              on cards 0 and 1 over ``nccl``); rank 0's step against the
+              one process's: loss within 2^-6, gradient norm within 2^-4,
+              |ds| / |s| over the running-stat updates within 2^-4; every
+              rank's parameters, stats and EMA bit for bit rank 0's, 24 K3
+              launches and no other kernel in each rank's step (read from
+              the ranks' files); each rank's warm s/step, gradient
+              all-reduce ms and bytes, and peak memory. |dg| / |g| over the
+              trainable gradients is printed beside its floor, one
+              process's step through the attention twin against through K3
+              (in bf16 the gradient's direction at random weights does not
+              survive rounding: both are ~1), and bounded by 2^-4 in the
+              same comparison run in fp32 (``mixed_precision=False``, gloo).
+              Then 2 steps of the train CLI with ``--n_devices 2``. A
+              rank's failure fails the phase.
+10. offline -- the offline entry points on the served configuration, from
               seeded weights written by ``save_pretrained``: the directory
               and a ``.pth`` through ``from_pretrained`` (disparity bit for
               bit the in-memory model's); eval fixtures at the KITTI 2015
@@ -108,7 +126,8 @@ launches (24 and 565).
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
 sharded requests for K5 and K3s; ``offline_launches`` over the offline
-phase) and, last, the ``{"ok": true, "device":
+phase; ``dp_launches_per_rank`` on the training-shape K3 row: each rank's
+launches in the dp phase's step) and, last, the ``{"ok": true, "device":
 {...}}`` line. Any failed check raises, so the exit code is non-zero and no
 result line is printed. Without a CUDA device it exits with code 1 before
 any phase.
@@ -154,6 +173,9 @@ VIT_TOKENS = (784 // 14) * (1344 // 14) + 1
 TRAIN = dict(config="configs/train/stereo_v1.json", batch=2, steps=4, save_every=2,
              resume_steps=2, pairs=8, pair_hw=(400, 800))
 TRAIN_VIT_TOKENS = (784 // 14) * (336 // 14) + 1
+# The dp phase: one train step of stereo_v1 on a fixed global batch of 2 in 2
+# ranks against one process, then timed steps, then the train CLI on 2 ranks.
+DP = dict(batch=2, ranks=2, pairs=4, timed_steps=2, cli_steps=2, allreduce_reps=5)
 # The offline phase: eval fixtures at the KITTI 2015 frame size (2 frames per
 # layout, disparities up to 192), and the export at scripts/make_export.py's
 # shape and iteration count.
@@ -1516,6 +1538,7 @@ def _train_cli(ws, data, steps: int, checkpoint: str) -> None:
     from foundationstereo_torch.train import cli
 
     cli.main(["--config", TRAIN["config"], "--workspace", str(ws), "--device", "cuda",
+              "--n_devices", "1",
               "--num_iterations", str(steps), "--batch_size", str(TRAIN["batch"]),
               "--save_every", str(TRAIN["save_every"]), "--log_every", "1",
               "--checkpoint", checkpoint, "--override", f"data.datasets.0.path={data}"])
@@ -1634,14 +1657,15 @@ def train_step_checks(dev, config, data, profile: bool) -> None:
 
     from foundationstereo_torch.models.dinov2 import Attention
     from foundationstereo_torch.ops import kernels
-    from foundationstereo_torch.train.cli import host_batch, to_device
+    from foundationstereo_torch.parallel.sharding import place_batch
+    from foundationstereo_torch.train.cli import host_batch, step_rng
     from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
     from foundationstereo_torch.train.trainer import Trainer
 
     config = copy.deepcopy(config)
     config["data"]["datasets"][0]["path"] = str(data)
     pipe = StereoTrainDataLoaderPipeline(config["data"], TRAIN["batch"])
-    batch = to_device(host_batch(pipe.get(), config["loss"]), dev)
+    batch = place_batch(dict(host_batch(pipe.get(), config["loss"]), rng=step_rng(0, 0)), dev)
     trainer = Trainer(config, seed=0, device=dev)
     state = trainer.init_state()
     attn = [m for m in state.model.modules() if isinstance(m, Attention)]
@@ -1770,7 +1794,286 @@ def profile_train_step(trainer, state, batch) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 9: the offline entry points
+# phase 9: data-parallel training (ranks over torch.distributed)
+# ---------------------------------------------------------------------------
+
+
+def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True) -> dict:
+    """One ``Trainer.train_step`` from the seeded state on this process's
+    part of the global batch at ``batch_path`` (all of it without a process
+    group; the ViT's attention through K3, or its twin with ``k3`` False),
+    then ``timed_steps`` more timed on the host's clock around a
+    synchronize; and, in a group, the gradient all-reduce alone on a buffer
+    of the trainable gradients' size, timed with CUDA events. Returns the
+    first step's metrics, its averaged trainable gradients and running-stat
+    updates (on the host), the launches of that step, the checksums of
+    what the ranks must hold alike, the timings and the peak memory."""
+    import torch
+
+    from foundationstereo_torch.models.dinov2 import Attention
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.parallel import distributed
+    from foundationstereo_torch.train.cli import replica_tensors, step_rng
+    from foundationstereo_torch.train.trainer import Trainer
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    host = torch.load(batch_path, weights_only=False)
+    batch = distributed.host_local_batch_to_global(distributed.local_slice(host), dev)
+    trainer = Trainer(config, seed=0, device=dev)
+    state = trainer.init_state()
+    for m in state.model.modules():
+        if isinstance(m, Attention):
+            m.use_kernel = k3
+    stats0 = {k: b.detach().clone() for k, b in state.model.named_buffers()}
+    grads = {}
+    apply = trainer._apply_grads
+
+    def capture(st, loss, metrics):
+        grads.update({k: p.grad.float().cpu() for k, p in st.model.named_parameters()
+                      if p.grad is not None})
+        return apply(st, loss, metrics)
+
+    trainer._apply_grads = capture
+    kernels.reset_launches()
+    state, metrics = trainer.train_step(state, batch)
+    launches = dict(kernels.LAUNCHES)
+    del trainer._apply_grads
+    metrics = {k: float(v) for k, v in metrics.items()}
+    stats = {k: (b - stats0[k]).float().cpu() for k, b in state.model.named_buffers()}
+    del stats0
+    replicas = replica_tensors(state)
+    distributed.check_replicas(replicas)
+    checksums = distributed.checksums(list(replicas.values())).cpu()
+    del replicas
+
+    secs = []
+    for i in range(timed_steps):
+        batch["rng"] = step_rng(0, i + 1)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        trainer.train_step(state, batch)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t0)
+    trainable = sum(g.numel() for g in grads.values())
+    allreduce_ms = []
+    if distributed.world_size() > 1 and timed_steps:
+        buf = torch.zeros(trainable, device=dev)
+        for _ in range(DP["allreduce_reps"]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            distributed.all_reduce_mean([buf])
+            end.record()
+            end.synchronize()
+            allreduce_ms.append(start.elapsed_time(end))
+        del buf
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del state, trainer, batch
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, grads=grads, stats=stats, launches=launches,
+                checksums=checksums, secs=secs, allreduce_ms=allreduce_ms,
+                trainable=trainable, peak_gib=peak)
+
+
+def _dp_rank(rank: int, world: int, url: str, backend: str, config, batch_path, out_dir,
+             timed_steps: int) -> None:
+    """A spawned rank of the dp phase: ``dp_step`` on card ``rank`` (``nccl``)
+    or card 0 (``gloo``: the ranks share it); rank 0 keeps everything, the
+    others their launches, checksums, timings and memory."""
+    import torch
+
+    from foundationstereo_torch.parallel import distributed
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False        # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(url, world, rank, backend)
+    try:
+        out = dp_step(dev, config, batch_path, timed_steps)
+    finally:
+        torch.distributed.destroy_process_group()
+    if rank:
+        out = {k: v for k, v in out.items() if k not in ("grads", "stats")}
+    torch.save(out, out_dir / f"{backend}_rank{rank}.pt")
+
+
+def _rel(a: dict, b: dict) -> float:
+    """|a - b| / |b| over all tensors of two dicts with the same keys."""
+    num = sum(float(((a[k] - v).double() ** 2).sum()) for k, v in b.items())
+    den = sum(float((v.double() ** 2).sum()) for v in b.values())
+    return math.sqrt(num / den)
+
+
+def dp_errors(got: dict, want: dict) -> dict:
+    """One step against another: the loss and the gradient norm (relative),
+    |dg| / |g| over all trainable gradients, |ds| / |s| over all running-stat
+    updates."""
+    m, w = got["metrics"], want["metrics"]
+    check(set(got["grads"]) == set(want["grads"]), "[dp] other gradient tensors")
+    check(m["skipped_nonfinite"] == 0.0 and w["skipped_nonfinite"] == 0.0, "[dp] a step skipped")
+    return dict(loss=abs(m["loss"] - w["loss"]) / abs(w["loss"]),
+                grad_norm=abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"],
+                grads=_rel(got["grads"], want["grads"]), stats=_rel(got["stats"], want["stats"]))
+
+
+def dp_compare(label: str, got: dict, want: dict, grads_bound: bool) -> dict:
+    """The ranks' step against the one-process step, with the bounds of the
+    train phase's K3 check: the loss within 2^-6, the gradient norm within
+    2^-4 (relative) and |ds| / |s| over the running-stat updates within
+    2^-4; |dg| / |g| over all trainable gradients within 2^-4 where
+    ``grads_bound`` (in fp32: in bf16 the one process through K3 against
+    itself through the twin already differs by more, see ``dp_phase``)."""
+    e = dp_errors(got, want)
+    m, w = got["metrics"], want["metrics"]
+    log(f"[dp] {label} against one process: loss {m['loss']:.6g} vs {w['loss']:.6g} (relative "
+        f"{e['loss']:.3g}), gradient norm {m['grad_norm']:.6g} vs {w['grad_norm']:.6g} "
+        f"({e['grad_norm']:.3g}), |dg|/|g| over {len(want['grads'])} trainable tensors "
+        f"{e['grads']:.3g}, |ds|/|s| over the running-stat updates {e['stats']:.3g} (bounds 2^-6, "
+        f"2^-4, {'2^-4' if grads_bound else 'none'}, 2^-4)")
+    check(e["loss"] <= 2 ** -6 and e["grad_norm"] <= 2 ** -4 and e["stats"] <= 2 ** -4
+          and (e["grads"] <= 2 ** -4 or not grads_bound),
+          f"[dp] {label}: the ranks' step disagrees with the one-process step")
+    return e
+
+
+def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
+             precision: str, timed_steps: int) -> list[int]:
+    """``DP["ranks"]`` spawned ranks over ``backend`` take the step; every
+    rank's checksums equal rank 0's, each rank launched K3 ``depth`` times and
+    no other kernel, and rank 0's step is held to the one-process step.
+    Returns each rank's K3 launches."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        url = f"tcp://localhost:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    mp.spawn(_dp_rank, args=(DP["ranks"], url, backend, config, batch_path, tmp, timed_steps),
+             nprocs=DP["ranks"], join=True)
+    wall = time.perf_counter() - t0
+    outs = [torch.load(tmp / f"{backend}_rank{r}.pt", weights_only=False)
+            for r in range(DP["ranks"])]
+    for r in range(DP["ranks"]):
+        (tmp / f"{backend}_rank{r}.pt").unlink()
+    for r, out in enumerate(outs):
+        want_launches = dict.fromkeys(out["launches"], 0)
+        want_launches["flash_attention"] = depth
+        check(out["launches"] == want_launches,
+              f"[dp] {backend} rank {r} launched {out['launches']}, expected {depth} K3")
+        check(bool((out["checksums"] == outs[0]["checksums"]).all()),
+              f"[dp] {backend}: rank {r}'s parameters differ from rank 0's")
+    cards = "one card, shared" if backend == "gloo" else f"{DP['ranks']} cards"
+    label = f"{precision}: {DP['ranks']} ranks over {backend} ({cards})"
+    dp_compare(label, outs[0], want, grads_bound=precision == "fp32")
+    nbytes = 4 * outs[0]["trainable"]
+    ring = 2 * (DP["ranks"] - 1) / DP["ranks"] * nbytes
+    for r, out in enumerate(outs):
+        log(f"[dp] {label}, rank {r}: launches {out['launches']}, warm steps "
+            f"{[round(x, 4) for x in out['secs']]} s, gradient all-reduce "
+            f"{[round(x, 3) for x in out['allreduce_ms']]} ms ({nbytes} bytes of fp32 "
+            f"gradients, {ring:.0f} bytes sent per rank by a ring), peak {out['peak_gib']:.2f} GiB")
+    log(f"[dp] {label}: parameters, stats and EMA bit for bit across the ranks; spawn to join "
+        f"{wall:.1f} s")
+    return [o["launches"]["flash_attention"] for o in outs]
+
+
+def dp_phase(dev) -> list[int]:
+    """Data-parallel training at stereo_v1's full width: the global batch of
+    ``DP["batch"]`` pairs from the pipeline, one process's step on it, then
+    ``DP["ranks"]`` ranks sharing card 0 over ``gloo`` (and, with two or more
+    cards, one card each over ``nccl``) on the same batch, each held to the
+    one-process step; then ``DP["cli_steps"]`` steps of the train CLI with
+    ``--n_devices 2``. Returns the K3 launches of each rank's bf16 step
+    over ``gloo``."""
+    import copy
+    import json as _json
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.train import cli
+    from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
+
+    config = _json.loads(Path(TRAIN["config"]).read_text())
+    depth = VIT_CONFIGS[ModelConfig.from_dict(config["model"]).vit_size]["depth"]
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        write_train_dataset(tmp / "data", DP["pairs"], TRAIN["pair_hw"])
+        config = copy.deepcopy(config)
+        config["data"]["datasets"][0]["path"] = str(tmp / "data")
+        pipe = StereoTrainDataLoaderPipeline(config["data"], DP["batch"])
+        host = cli.host_batch(pipe.get(), config["loss"])
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()}
+        host["rng"] = cli.step_rng(0, 0)
+        batch_path = tmp / "batch.pt"
+        torch.save(host, batch_path)
+        log(f"[dp] global batch {tuple(host['left'].shape)} from the pipeline; "
+            f"{torch.cuda.device_count()} card(s)")
+
+        want = dp_step(dev, config, batch_path, DP["timed_steps"])
+        log(f"[dp] bf16, one process, batch {DP['batch']}: loss {want['metrics']['loss']:.6g}, "
+            f"gradient norm {want['metrics']['grad_norm']:.6g}, launches {want['launches']}, warm "
+            f"steps {[round(x, 4) for x in want['secs']]} s, peak {want['peak_gib']:.2f} GiB, "
+            f"{want['trainable']} trainable parameters")
+        check(want["launches"].get("flash_attention") == depth, f"[dp] one process: {want['launches']}")
+        # How far one process's step moves when only the ViT's attention
+        # rounds otherwise (its plain twin in place of K3): the floor the
+        # ranks' bf16 gradients are read against.
+        twin = dp_step(dev, config, batch_path, 0, k3=False)
+        floor = dp_errors(twin, want)
+        log(f"[dp] bf16, one process through the attention twin against through K3: loss "
+            f"{floor['loss']:.3g}, gradient norm {floor['grad_norm']:.3g}, |dg|/|g| "
+            f"{floor['grads']:.3g}, |ds|/|s| {floor['stats']:.3g}")
+        del twin
+        timed = DP["timed_steps"]
+        launches = dp_ranks("gloo", config, batch_path, tmp, want, depth, "bf16", timed)
+        if cards >= DP["ranks"]:
+            dp_ranks("nccl", config, batch_path, tmp, want, depth, "bf16", timed)
+        else:
+            log("[dp] one card: the ranks share it over gloo; nccl across cards not run")
+        del want
+        config32 = copy.deepcopy(config)
+        config32["model"]["mixed_precision"] = False
+        want32 = dp_step(dev, config32, batch_path, 0)
+        log(f"[dp] fp32, one process, batch {DP['batch']}: loss {want32['metrics']['loss']:.6g}, "
+            f"gradient norm {want32['metrics']['grad_norm']:.6g}, peak {want32['peak_gib']:.2f} GiB")
+        dp_ranks("gloo", config32, batch_path, tmp, want32, depth, "fp32", 0)
+        del want32
+
+        ws = tmp / "ws"
+        t0 = time.perf_counter()
+        line = cli.main(["--config", TRAIN["config"], "--workspace", str(ws), "--device", "cuda",
+                         "--n_devices", str(DP["ranks"]), "--num_iterations", str(DP["cli_steps"]),
+                         "--batch_size", str(DP["batch"]), "--save_every", str(DP["cli_steps"]),
+                         "--log_every", "1", "--checkpoint", "none",
+                         "--override", f"data.datasets.0.path={tmp / 'data'}"]
+                        + ([] if cards >= DP["ranks"] else ["--dist_backend", "gloo"]))
+        secs = time.perf_counter() - t0
+        lines = [_json.loads(x) for x in (ws / "metrics.jsonl").read_text().splitlines()]
+        check([x["step"] for x in lines] == list(range(DP["cli_steps"])),
+              f"[dp] CLI steps {[x['step'] for x in lines]}")
+        for x in lines:
+            check(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0.0, f"[dp] CLI line {x}")
+        files = {p.name for p in (ws / "checkpoints").iterdir()}
+        n = DP["cli_steps"]
+        check({f"{n}.pt", f"{n}_ema.pt", f"{n}_optimizer.pt", "latest.pt"} <= files,
+              f"[dp] CLI checkpoints {sorted(files)}")
+        log(f"[dp] the train CLI, --n_devices {DP['ranks']} "
+            f"({'nccl' if cards >= DP['ranks'] else 'gloo, one card'}): {n} steps in {secs:.1f} s "
+            f"(spawn, build, steps, save), loss {[round(x['loss'], 4) for x in lines]}, "
+            f"t_dispatch {[round(x['t_dispatch'], 4) for x in lines]} s, last line {line.get('step')}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the offline entry points
 # ---------------------------------------------------------------------------
 
 
@@ -2007,9 +2310,9 @@ def offline_phase(dev, profile: bool = False) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh,train,offline",
+    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh,train,dp,offline",
                     help="comma-separated subset of "
-                         "env,build,kernels,path,serve,demo,mesh,train,offline")
+                         "env,build,kernels,path,serve,demo,mesh,train,dp,offline")
     ap.add_argument("--profile", action="store_true",
                     help="time one more 736x1280 pair per module and under torch.profiler, for "
                          "the served configuration, the one with the 3x3 conv kernel and the "
@@ -2075,6 +2378,12 @@ def main() -> int:
         train_launches = train_phase(dev, args.profile)
         log(f"[train] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+    dp_launches = []
+    if "dp" in phases:
+        t0 = time.perf_counter()
+        dp_launches = dp_phase(dev)
+        log(f"[dp] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
     offline_launches = {}
     if "offline" in phases:
         t0 = time.perf_counter()
@@ -2087,6 +2396,8 @@ def main() -> int:
         row["launches"] = by_phase[row["phase"]].get(row["name"], 0)
         row["serve_launches"] = served.get(row["name"], 0)
         row["offline_launches"] = offline_launches.get(row["name"], 0)
+        row["dp_launches_per_rank"] = (dp_launches if (row["name"], row["phase"])
+                                       == ("flash_attention", "train") else [])
         if row["phase"] in phases:
             check(row["launches"] > 0, f"{row['name']} never launched on the {row['phase']} path")
         if "offline" in phases and row["name"] in OFFLINE_KERNELS and row["phase"] == "demo":

@@ -28,6 +28,9 @@ disparity transformer's dropouts draw masks from the generator of the
 enclosing ``dropout_generator`` block (flax's "dropout" stream).
 ``checkpointed`` runs a region under ``torch.utils.checkpoint`` so that its
 recompute in the backward draws the same masks and moves no running stats.
+Inside a ``global_batch`` block each rank of a data-parallel step computes
+its slice as a part of the global batch: batch norm takes the global batch's
+statistics, and dropout the global batch's masks.
 """
 
 from __future__ import annotations
@@ -37,12 +40,14 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
+from foundationstereo_torch.parallel.distributed import all_reduce_sum
 
 
 def leaky_relu(x):
@@ -227,10 +232,12 @@ def conv_nd(is_3d: bool, *args, **kwargs):
 # Training: dropout masks and checkpointed regions
 # ---------------------------------------------------------------------------
 
-# The generator of the innermost ``dropout_generator`` block, and how many
-# checkpointed regions are being recomputed (a list: the recompute runs on
-# the autograd engine's thread).
+# The generator of the innermost ``dropout_generator`` block, the process
+# group of the innermost ``global_batch`` block (None: the batch is this
+# process's alone), and how many checkpointed regions are being recomputed
+# (lists: the recompute runs on the autograd engine's thread).
 _DROPOUT_GEN: list = [None]
+_GLOBAL_GROUP: list = [None]
 _RECOMPUTE: list = [0]
 
 
@@ -244,10 +251,33 @@ def dropout_generator(gen: torch.Generator | None):
         _DROPOUT_GEN[0] = prev
 
 
+@contextlib.contextmanager
+def global_batch(group=None):
+    """Inside the block, the batch a train-mode forward sees is this rank's
+    slice of the global batch: the ranks of ``group`` (None: the default
+    group) each hold an equal slice, in rank order. Batch norm normalises
+    with the global batch's statistics (an all-reduce whose backward
+    all-reduces their gradient, so every rank's input gets the global loss's
+    gradient), and dropout draws the global batch's mask and keeps this
+    rank's rows. So a step on N ranks computes what one process computes on
+    the global batch. With a group of one, or no process group, nothing
+    changes. Inference never reads it."""
+    if dist.is_initialized() and group is None:
+        group = dist.group.WORLD
+    active = group is not None and dist.get_world_size(group) > 1
+    prev, _GLOBAL_GROUP[0] = _GLOBAL_GROUP[0], group if active else None
+    try:
+        yield
+    finally:
+        _GLOBAL_GROUP[0] = prev
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     """flax's ``nn.Dropout``: keep with probability 1 - rate (a uniform draw
     below it), scale the kept values by 1 / (1 - rate). Identity outside
-    training; in training the mask comes from the ``dropout_generator``."""
+    training; in training the mask comes from the ``dropout_generator``
+    (inside ``global_batch``, this rank's rows of the global batch's mask:
+    axis 0 is the batch's, outermost)."""
     if not training or rate == 0.0:
         return x
     gen = _DROPOUT_GEN[0]
@@ -255,7 +285,14 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         raise RuntimeError("train-mode dropout needs a generator: run the forward inside "
                            "layers.dropout_generator(torch.Generator(...))")
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    group = _GLOBAL_GROUP[0]
+    if group is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    else:
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        rows = x.shape[0]
+        keep = torch.rand((n * rows,) + x.shape[1:], generator=gen,
+                          device=x.device)[r * rows:(r + 1) * rows] < keep_prob
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -269,12 +306,15 @@ def _forward_entry(gen, saved: dict):
 
 
 @contextlib.contextmanager
-def _recompute(gen, saved: dict):
+def _recompute(gen, group, saved: dict):
     """The recompute of a checkpointed region: the dropout generator back at
-    the state the forward began with (and put back where it was after), and
-    batch norm's running stats left alone."""
+    the state the forward began with (and put back where it was after), the
+    forward's ``global_batch`` group (so every rank issues the forward's
+    collectives again, in the same order), and batch norm's running stats
+    left alone."""
     _RECOMPUTE[0] += 1
     prev_gen, _DROPOUT_GEN[0] = _DROPOUT_GEN[0], gen
+    prev_group, _GLOBAL_GROUP[0] = _GLOBAL_GROUP[0], group
     after = gen.get_state() if gen is not None else None
     if gen is not None:
         gen.set_state(saved["state"])
@@ -283,6 +323,7 @@ def _recompute(gen, saved: dict):
     finally:
         if gen is not None:
             gen.set_state(after)
+        _GLOBAL_GROUP[0] = prev_group
         _DROPOUT_GEN[0] = prev_gen
         _RECOMPUTE[0] -= 1
 
@@ -294,9 +335,10 @@ def checkpointed(fn, *args):
     recompute but not an explicit generator, so the dropout generator is put
     back to its state at the forward's entry here; batch norm skips its
     running-stat update in the recompute."""
-    gen, saved = _DROPOUT_GEN[0], {}
+    gen, group, saved = _DROPOUT_GEN[0], _GLOBAL_GROUP[0], {}
     return checkpoint(fn, *args, use_reentrant=False,
-                      context_fn=lambda: (_forward_entry(gen, saved), _recompute(gen, saved)))
+                      context_fn=lambda: (_forward_entry(gen, saved),
+                                          _recompute(gen, group, saved)))
 
 
 # ---------------------------------------------------------------------------
@@ -313,7 +355,10 @@ class BatchNorm(nn.Module):
     same biased variance, as flax's ``nn.BatchNorm`` does
     (``F.batch_norm(training=True)`` would move them toward the unbiased
     one); the update is made once per forward, never in the recompute of a
-    ``checkpointed`` region."""
+    ``checkpointed`` region. Inside ``global_batch`` the statistics are the
+    global batch's: the per-channel sums of x and x^2 and the element count,
+    all-reduced in fp32 (``nn.SyncBatchNorm`` would move the running
+    variance toward the unbiased one)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -330,8 +375,16 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         axes = [0] + list(range(2, x.ndim))
-        mean = x.mean(axes)
-        var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+        group = _GLOBAL_GROUP[0]
+        if group is None:
+            mean = x.mean(axes)
+            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+        else:
+            c = x.shape[1]
+            count = x.new_full((1,), x.numel() // c)
+            sums = all_reduce_sum(torch.cat([x.sum(axes), (x * x).sum(axes), count]), group)
+            mean = sums[:c] / sums[2 * c]
+            var = (sums[c:2 * c] / sums[2 * c] - mean * mean).clamp_min(0.0)
         if not _RECOMPUTE[0]:
             keep = 1.0 - self.momentum             # flax's momentum
             with torch.no_grad():

@@ -17,11 +17,17 @@ Which axes shard is the JAX package's rule (``pallas_kernels.py:342-344``,
 replicated. A replicated axis is computed once, on the mesh's first entry
 along it, where JAX computes the same values on every device.
 
+The training placements (``sharding.py:26-33,64-71`` there) are one
+process per rank here (``parallel/distributed.py``): ``place_batch`` moves a
+rank's local batch to its card, the counterpart of placing the global batch
+on the ``data`` axis, and ``replicate`` broadcasts rank 0's parameters,
+buffers and EMA copies, the counterpart of the replicated state.
+
 Not ported yet: the JAX module's ``shard_batch`` and ``shard_spatial``
 (hints with which GSPMD partitions the filter stack and the GRU convs along
-width, with halo exchanges) and ``batch_sharding``, ``replicate`` and
-``place_batch`` (placements of training batches). Those convs run on the
-home device until a later slice partitions them, and training is not ported.
+width, with halo exchanges). Those convs run on the home device until a
+later slice partitions them, and training has no ``spatial`` axis: the
+batch must split evenly over the ranks.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from __future__ import annotations
 import contextlib
 from typing import Callable
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from foundationstereo_torch.parallel.mesh import Mesh
 
@@ -37,6 +45,38 @@ from foundationstereo_torch.parallel.mesh import Mesh
 def device_guard(device: torch.device):
     """``torch.cuda.device(device)`` for a CUDA device, nothing for the CPU."""
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def place_batch(batch: dict, device) -> dict:
+    """A host batch (numpy arrays or CPU tensors) as tensors on ``device``,
+    pinned and copied without blocking on a card; ``rng`` stays on the host."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if k == "rng":
+            out[k] = v
+            continue
+        t = torch.as_tensor(np.ascontiguousarray(v)) if isinstance(v, np.ndarray) else v
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+@torch.no_grad()
+def replicate(state, src: int = 0) -> None:
+    """Every tensor of ``state`` (a module's parameters and buffers, or a
+    dict or list of tensors such as the EMA copies) overwritten in place
+    with rank ``src``'s, one broadcast per tensor. Without a process group,
+    nothing to do."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    if isinstance(state, torch.nn.Module):
+        tensors = [*state.parameters(), *state.buffers()]
+    else:
+        tensors = list(state.values()) if isinstance(state, dict) else list(state)
+    for t in tensors:
+        dist.broadcast(t.data, src=src)
 
 
 def _gather(parts: list[torch.Tensor], dim: int, home: torch.device) -> torch.Tensor:

@@ -2,7 +2,7 @@
 
     python -m foundationstereo_torch.train.cli --config configs/train/stereo_v1.json \\
         --workspace workspace/run1 [--num_iterations N] [--batch_size B] \\
-        [--checkpoint latest|none|STEP] [--device cuda|cpu]
+        [--checkpoint latest|none|STEP] [--device cuda|cpu] [--n_devices N]
 
 The same flags, ``--override`` paths and JSON config as the JAX CLI: the
 data pipeline prefetches on host threads, each batch is padded to /32 on
@@ -13,14 +13,31 @@ synchronisation), ``t_get`` (waiting on the pipeline), ``t_data`` (padding
 and the copy to the device) and ``t_fence`` (fetching the metrics).
 Checkpoints (``train/checkpoints.py``) go to ``<workspace>/checkpoints`` every
 ``--save_every`` steps and at the end; a run resumes from ``latest`` by
-default. One device: ``--n_devices`` above 1 raises (data-parallel training
-waits, ROADMAP.md).
+default. A step's dropout key comes from ``(--seed, step)``.
+
+Data-parallel training, as the JAX CLI's ``--n_devices``: 0 (the default)
+trains on every visible card (one process with ``--device cpu``), N > 1 on N
+ranks, one process each (``torch.distributed``; rank r on card r over
+``nccl``, or on the CPU over ``gloo``). Where a launcher set ``RANK`` and
+``WORLD_SIZE`` (several hosts) the process joins them; otherwise the CLI
+spawns N local ranks on a free local port. Ranks that share a card need
+``--dist_backend gloo`` (NCCL refuses two ranks on one device: the CLI
+raises rather than switch). ``--batch_size`` is the global batch: each
+rank's pipeline draws ``batch_size / N`` samples, sampling from ``--seed`` +
+rank, and N must divide the batch (training has no ``spatial`` axis yet).
+The step is the one-process step on the global batch
+(``train/trainer.py``). Rank 0 alone writes ``metrics.jsonl`` (the global
+batch's means), the visualisations and the checkpoints; every rank restores
+the same one, and every ``--log_every`` steps the ranks' parameters, batch
+stats and EMA are checked bit for bit against rank 0's.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import socket
 import time
 from pathlib import Path
 
@@ -39,7 +56,12 @@ def parse_args(argv=None):
     ap.add_argument("--log_every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ema", type=int, default=1)
-    ap.add_argument("--n_devices", type=int, default=0, help="0 or 1: one device")
+    ap.add_argument("--n_devices", type=int, default=0,
+                    help="data-parallel ranks: 0 = every visible card (1 with --device cpu); "
+                         "--batch_size is the global batch, split evenly over them")
+    ap.add_argument("--dist_backend", default=None,
+                    help="nccl (the default on cards: one card per rank) or gloo (the CPU's; "
+                         "ranks that share a card)")
     ap.add_argument("--mlflow", type=int, default=0)
     ap.add_argument("--vis_every", type=int, default=0,
                     help="dump left|GT|prediction panels every N steps")
@@ -74,7 +96,7 @@ def apply_overrides(config: dict, overrides: list[str]) -> dict:
 def host_batch(raw: dict, loss_cfg: dict) -> dict:
     """A pipeline batch as the trainer's arrays: images back to 0-255 and
     padded to /32 (edge mode), disparity and mask zero-padded, label
-    indices and a fresh dropout ``rng``."""
+    indices (the step's dropout ``rng`` is added by the caller)."""
     from foundationstereo_torch.ops.pad import InputPadder
     from foundationstereo_torch.train.trainer import make_label_index
 
@@ -90,52 +112,100 @@ def host_batch(raw: dict, loss_cfg: dict) -> dict:
     gt[:, t:t + dh, l:l + dw] = raw["disparity"]
     m[:, t:t + dh, l:l + dw] = raw["disparity_mask"]
     return {"left": left, "right": right, "disparity": gt, "mask": m,
-            "label_idx": make_label_index(raw["label_type"], loss_cfg),
-            "rng": np.random.randint(0, 2 ** 31, size=2).astype(np.uint32)}
+            "label_idx": make_label_index(raw["label_type"], loss_cfg)}
 
 
-def to_device(batch: dict, device) -> dict:
-    """numpy batch -> tensors on ``device`` (pinned and non-blocking on CUDA);
-    ``rng`` stays on the host."""
+def step_rng(seed: int, step: int, micro: int = 0) -> np.ndarray:
+    """The dropout key of a (micro-)batch: (2,) uint32 from (seed, step,
+    micro), the same on every rank."""
+    return np.random.default_rng([seed, step, micro]).integers(0, 2 ** 31, size=2).astype(np.uint32)
+
+
+def plan_ranks(args) -> tuple[int, str]:
+    """(ranks, backend) of the run: a launcher's ``WORLD_SIZE`` where it set
+    one, else ``--n_devices`` (0: every visible card, 1 on the CPU). Raises
+    where the plan cannot run: no card for ``--device cuda``, ``nccl`` on the
+    CPU or with more local ranks than cards, a batch the ranks do not split."""
     import torch
 
-    out = {}
-    for k, v in batch.items():
-        if k == "rng":
-            out[k] = v
-            continue
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
+    from foundationstereo_torch.models.foundation_stereo import resolve_device
+
+    device = resolve_device(args.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if args.n_devices not in (0, world):
+            raise ValueError(f"--n_devices {args.n_devices} but the launcher's WORLD_SIZE is {world}")
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    else:
+        world = args.n_devices or (cards if device.type == "cuda" else 1)
+        local = world
+    backend = args.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+    if world > 1 and backend == "nccl":
+        if device.type != "cuda":
+            raise ValueError("--dist_backend nccl needs --device cuda")
+        if local > cards:
+            raise ValueError(f"{local} ranks on this host but {cards} visible card(s): NCCL refuses "
+                             "two ranks on one device; pass --dist_backend gloo to share cards")
+    if args.batch_size % world:
+        raise ValueError(f"--batch_size {args.batch_size} does not split over {world} ranks: each "
+                         "rank takes an equal slice of the global batch, and the JAX mesh's "
+                         "spatial axis, which trains fewer samples than devices, is not ported "
+                         "yet (ROADMAP.md, Queue A item 2)")
+    return world, backend
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
 
 
 def main(argv=None) -> dict:
     """Runs the training; returns the last logged metrics line."""
     args = parse_args(argv)
-    if args.n_devices > 1:
-        raise NotImplementedError("data-parallel training over several devices is not ported "
-                                  "yet (ROADMAP.md, Queue A): pass --n_devices 1")
-    config = apply_overrides(json.loads(Path(args.config).read_text()), args.override)
-    workspace = Path(args.workspace)
-    workspace.mkdir(parents=True, exist_ok=True)
-    (workspace / "config.json").write_text(json.dumps(config, indent=2))
+    world, backend = plan_ranks(args)
+    if world > 1 and "RANK" not in os.environ:
+        import torch.multiprocessing as mp
 
+        mp.spawn(train, args=(args, world, backend, f"tcp://localhost:{_free_port()}"),
+                 nprocs=world, join=True)
+        lines = (Path(args.workspace) / "metrics.jsonl").read_text().splitlines()
+        return json.loads(lines[-1]) if lines else {}
+    rank = int(os.environ["RANK"]) if world > 1 else 0
+    return train(rank, args, world, backend, None)
+
+
+def train(rank: int, args, world: int, backend: str, url: str | None) -> dict:
+    """The training loop of one rank (of ``world``; ``url`` None: the
+    launcher's environment names the group)."""
     import torch
 
-    from foundationstereo_torch.models.foundation_stereo import resolve_device
+    from foundationstereo_torch.parallel import distributed
     from foundationstereo_torch.train.checkpoints import CheckpointManager
     from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
     from foundationstereo_torch.train.trainer import Trainer
     from foundationstereo_torch.utils.misc import set_seed
 
-    device = resolve_device(args.device)
-    set_seed(args.seed)
-    print(f"device: {device}", flush=True)
+    config = apply_overrides(json.loads(Path(args.config).read_text()), args.override)
+    workspace = Path(args.workspace)
+    lead = rank == 0
+    if lead:
+        workspace.mkdir(parents=True, exist_ok=True)
+        (workspace / "config.json").write_text(json.dumps(config, indent=2))
+    device = torch.device(args.device)
+    if world > 1:
+        if device.type == "cuda":
+            local = int(os.environ.get("LOCAL_RANK", rank))
+            device = torch.device("cuda", local % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+        distributed.initialize(url, world, rank, backend)
+    set_seed(args.seed + rank)
+    print(f"device: {device}" + (f", rank {rank} of {world} ({backend})" if world > 1 else ""),
+          flush=True)
 
     mlflow = None
-    if args.mlflow:
+    if args.mlflow and lead:
         try:
             import mlflow as _mlflow
             mlflow = _mlflow
@@ -144,35 +214,44 @@ def main(argv=None) -> dict:
         except Exception as e:  # noqa: BLE001 -- soft-fail like the reference
             print(f"mlflow disabled: {e}")
 
-    data_pipe = StereoTrainDataLoaderPipeline(config["data"], args.batch_size, num_load_workers=4)
+    data_pipe = StereoTrainDataLoaderPipeline(config["data"], args.batch_size // world,
+                                              num_load_workers=4)
     data_pipe.start()
 
-    def next_batch():
-        return to_device(host_batch(data_pipe.get(), config["loss"]), device)
+    def place(raw):
+        return distributed.host_local_batch_to_global(host_batch(raw, config["loss"]), device)
 
     try:
         trainer = Trainer(config, seed=args.seed, enable_ema=bool(args.ema), device=device)
-        batch = next_batch()
+        batch = place(data_pipe.get())
         state = trainer.init_state()
         ckpt = CheckpointManager(workspace / "checkpoints", max_to_keep=5)
         initial_step = 0
         if args.checkpoint != "none":
             state, initial_step = ckpt.restore(args.checkpoint, state)
-            if initial_step:
+            if initial_step and lead:
                 print(f"resumed from step {initial_step}", flush=True)
 
-        metrics_log = open(workspace / "metrics.jsonl", "a")
+        def save(step):
+            if lead:
+                ckpt.save(step, state, config=config)
+            distributed.barrier(device)
+
+        metrics_log = open(workspace / "metrics.jsonl", "a") if lead else None
         records, line = [], {}
         t_last = time.time()
         prof_range = [int(x) for x in args.profile_steps.split(",")] if args.profile_steps else None
         prof = None
         for step in range(initial_step, args.num_iterations):
-            if prof_range and step == prof_range[0]:
+            if lead and prof_range and step == prof_range[0]:
                 prof = torch.profiler.profile(record_shapes=False)
                 prof.__enter__()
             t0 = time.perf_counter()
-            if args.gradient_accumulation_steps > 1:
-                micros = [batch] + [next_batch() for _ in range(args.gradient_accumulation_steps - 1)]
+            micros = [batch] + [place(data_pipe.get())
+                                for _ in range(args.gradient_accumulation_steps - 1)]
+            for i, micro in enumerate(micros):
+                micro["rng"] = step_rng(args.seed, step, i)
+            if len(micros) > 1:
                 state, metrics = trainer.train_step_accum(state, micros)
             else:
                 state, metrics = trainer.train_step(state, batch)
@@ -182,7 +261,7 @@ def main(argv=None) -> dict:
             raw = data_pipe.get()
             t_get = time.perf_counter() - t0
             t0 = time.perf_counter()
-            batch = to_device(host_batch(raw, config["loss"]), device)
+            batch = place(raw)
             t_data = time.perf_counter() - t0
             # One device-to-host copy of every metric.
             t0 = time.perf_counter()
@@ -199,7 +278,7 @@ def main(argv=None) -> dict:
                 print(f"profile trace written to {workspace / 'profile.json'}", flush=True)
                 prof = None
 
-            if args.vis_every and step % args.vis_every == 0:
+            if lead and args.vis_every and step % args.vis_every == 0:
                 try:
                     from PIL import Image
 
@@ -216,13 +295,16 @@ def main(argv=None) -> dict:
                     print(f"vis failed: {e}", flush=True)
 
             if step % args.log_every == 0 or step == initial_step:
+                if world > 1:
+                    distributed.check_replicas(replica_tensors(state))
                 avg = {k: float(np.mean([r[k] for r in records if k in r])) for k in records[-1]}
                 dt = time.time() - t_last
                 line = {"step": step, "it_per_s": round(len(records) / max(dt, 1e-9), 3), **avg}
-                print(json.dumps({k: round(v, 5) if isinstance(v, float) else v
-                                  for k, v in line.items()}), flush=True)
-                metrics_log.write(json.dumps(line) + "\n")
-                metrics_log.flush()
+                if lead:
+                    print(json.dumps({k: round(v, 5) if isinstance(v, float) else v
+                                      for k, v in line.items()}), flush=True)
+                    metrics_log.write(json.dumps(line) + "\n")
+                    metrics_log.flush()
                 if mlflow:
                     try:
                         mlflow.log_metrics(avg, step=step)
@@ -231,15 +313,30 @@ def main(argv=None) -> dict:
                 records, t_last = [], time.time()
 
             if step % args.save_every == 0 and step > initial_step:
-                ckpt.save(step, state, config=config)
+                save(step)
 
-        ckpt.save(args.num_iterations, state, config=config)
-        ckpt.wait()
-        metrics_log.close()
+        if lead:
+            ckpt.save(args.num_iterations, state, config=config)
+            ckpt.wait()
+        distributed.barrier(device)
+        if metrics_log:
+            metrics_log.close()
     finally:
         data_pipe.stop()
+        if world > 1:
+            torch.distributed.destroy_process_group()
     print("training done", flush=True)
     return line
+
+
+def replica_tensors(state) -> dict:
+    """What every rank must hold bit for bit: the parameters, the batch
+    stats and the EMA."""
+    named = dict(state.model.named_parameters())
+    named.update(state.model.named_buffers())
+    if state.ema is not None:
+        named.update({f"ema.{k}": v for k, v in state.ema.items()})
+    return named
 
 
 if __name__ == "__main__":

@@ -12,6 +12,18 @@ the JAX step.
 
 Deciding the skip reads the two norms on the host: one synchronisation per
 step.
+
+Data-parallel (a process group of N ranks, ``parallel/distributed.py``):
+the JAX package's sharded step, which equals the one-device step on the
+global batch (``foundationstereo_tpu/train/trainer.py:6-9``). Each rank
+builds the same seeded model and takes rank 0's (``replicate``), runs its
+slice's forward and backward inside ``layers.global_batch`` (the global
+batch's batch-norm statistics and dropout masks), and before the update the
+gradients are averaged over the ranks in one all-reduce of a flat fp32
+buffer (once per optimizer step, after any accumulation), as are the loss
+and the metrics. So the norm, the skip, clipping, AdamW and the EMA see the
+global gradient and decide alike on every rank, and the ranks' parameters
+stay equal bit for bit.
 """
 
 from __future__ import annotations
@@ -24,7 +36,9 @@ from torch.func import functional_call
 
 from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo, resolve_device
-from foundationstereo_torch.models.layers import dropout_generator
+from foundationstereo_torch.models.layers import dropout_generator, global_batch
+from foundationstereo_torch.parallel import distributed
+from foundationstereo_torch.parallel.sharding import replicate
 from foundationstereo_torch.train import losses as L
 from foundationstereo_torch.train.optim import (
     ScheduledOptimizer,
@@ -82,8 +96,10 @@ class Trainer:
         self.train_flag = True
 
     def init_state(self) -> TrainState:
-        """A model with seeded weights, its optimizer and the EMA."""
+        """A model with seeded weights (rank 0's on every rank), its optimizer
+        and the EMA."""
         model = FoundationStereo(self.model_cfg, device=self.device, seed=self.seed)
+        replicate(model)
         opt, _ = build_optimizer(model, self.config.get("optimizer", DEFAULT_OPTIMIZER),
                                  self.config.get("lr_scheduler"))
         return TrainState(step=0, model=model, optimizer=opt,
@@ -123,7 +139,7 @@ class Trainer:
         gen = None
         if "rng" in batch:
             gen = torch.Generator(device=self.device).manual_seed(dropout_seed(batch["rng"]))
-        with dropout_generator(gen):
+        with dropout_generator(gen), global_batch():
             init_disp, preds = model(batch["left"], batch["right"], iters=self.iters,
                                      test_mode=False, train=self.train_flag)
             per_sample, metrics = self.composite_loss(init_disp, preds, batch["disparity"],
@@ -133,6 +149,18 @@ class Trainer:
         return loss.detach(), {k: v.detach().mean() for k, v in metrics.items()}
 
     # -- steps --------------------------------------------------------------
+
+    def _average_over_ranks(self, state: TrainState, loss, metrics) -> tuple:
+        """The gradients (in place), the loss and the metrics as their means
+        over the ranks: two all-reduces (nothing without a process group)."""
+        if distributed.world_size() == 1:
+            return loss, metrics
+        distributed.all_reduce_mean([p.grad for p in state.model.parameters()
+                                     if p.grad is not None])
+        keys = list(metrics)
+        values = torch.stack([loss] + [metrics[k] for k in keys])
+        distributed.all_reduce_mean([values])
+        return values[0], dict(zip(keys, values[1:]))
 
     def _apply_grads(self, state: TrainState, loss, metrics) -> tuple[TrainState, dict]:
         model, opt = state.model, state.optimizer
@@ -153,10 +181,12 @@ class Trainer:
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One optimisation step on batch: left/right (B, H, W, 3) float
         0-255, disparity (B, H, W), mask (B, H, W) bool, label_idx (B,),
-        rng (2,) uint32. Updates the state in place and returns it with the
-        step's metrics (0-d tensors on the device)."""
+        rng (2,) uint32 (the same on every rank: it keys the global batch's
+        dropout masks). Updates the state in place and returns it with the
+        step's metrics (0-d tensors on the device; over the ranks, their
+        means)."""
         loss, metrics = self.loss_and_grads(state, batch)
-        return self._apply_grads(state, loss, metrics)
+        return self._apply_grads(state, *self._average_over_ranks(state, loss, metrics))
 
     def train_step_accum(self, state: TrainState, batches: list[dict]) -> tuple[TrainState, dict]:
         """One optimisation step over K micro-batches: the mean of their
@@ -173,7 +203,8 @@ class Trainer:
                 if p.grad is not None:
                     p.grad.div_(k)
         metrics = {key: torch.stack(v).mean() for key, v in stacked.items()}
-        return self._apply_grads(state, torch.stack(losses).sum() / k, metrics)
+        loss, metrics = self._average_over_ranks(state, torch.stack(losses).sum() / k, metrics)
+        return self._apply_grads(state, loss, metrics)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, batch: dict, use_ema: bool = False):

@@ -215,7 +215,8 @@ def test_entry_points_need_cuda_unless_asked_for_cpu():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port, chip_smoke.py, tools/k4_timing.py,
+    """Every module of the port (``parallel/distributed.py`` among them), chip_smoke.py
+    (which its dp phase's spawned ranks import again), tools/k4_timing.py,
     tools/k3_timing.py, tools/k1_k2_timing.py and tools/op_overhead.py, in a
     fresh interpreter where importing jax or the JAX package raises."""
     code = r"""
@@ -237,6 +238,7 @@ for tool in ("k4_timing", "k3_timing", "k1_k2_timing", "op_overhead"):
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "foundationstereo_tpu")]
 assert not bad, bad
+assert "foundationstereo_torch.parallel.distributed" in names
 print(len(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
