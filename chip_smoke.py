@@ -82,7 +82,8 @@ Phases:
               ``--n_devices 1`` (see ``train_phase``).
 9. dp      -- data-parallel training at the same width: one
               ``Trainer.train_step`` on a global batch of 2 from the
-              pipeline in one process, then in 2 spawned ranks that share
+              pipeline in one process, then in 2 spawned ranks (an explicit
+              data 2 x spatial 1 ``RankMesh``) that share
               card 0 over ``gloo`` (and, with two or more cards, in 2 ranks
               on cards 0 and 1 over ``nccl``); rank 0's step against the
               one process's: loss within 2^-6, gradient norm within 2^-4,
@@ -96,8 +97,9 @@ Phases:
               (in bf16 the gradient's direction at random weights does not
               survive rounding: both are ~1), and bounded by 2^-4 in the
               same comparison run in fp32 (``mixed_precision=False``, gloo).
-              Then 2 steps of the train CLI with ``--n_devices 2``. A
-              rank's failure fails the phase.
+              A rank's failure fails the phase. (The train CLI's
+              ``--n_devices 2`` is spatial 2 now, as the JAX CLI's: the
+              spatial phase runs it.)
 10. offline -- the offline entry points on the served configuration, from
               seeded weights written by ``save_pretrained``: the directory
               and a ``.pth`` through ``from_pretrained`` (disparity bit for
@@ -113,6 +115,25 @@ Phases:
               the export's seconds and bytes, warm seconds per call of the
               loaded program and the eager forward in turns, and the host's
               microseconds per call of each ``torch.ops.fs`` operator.
+11. spatial -- width partitioning over the ranks of a spatial mesh
+              (``parallel/spatial.py``): the served configuration (ViT-L,
+              max_disp 416, 736x1280, 32 iterations, bf16, seeded weights)
+              answers 2 pairs in one process (and the first in fp32), then
+              in 2 spawned ranks that share card 0 over ``gloo`` (and in 2 and 4 ranks on distinct
+              cards over ``nccl`` where there are as many) under a data 1 x
+              spatial n ``RankMesh``: every rank's launches per pair must be
+              1 K5 build, 32 K5 lookups and 24 K3 (the replicated ViT) and no
+              K1, K2, K3s or K4; every rank's gathered disparity the same, and
+              within mean 0.05 px and p99 0.5 px of the one process's (in
+              fp32 within max 1e-2 px). Each
+              rank's seconds per pair, halo exchanges and gathers per pair and
+              their ms (CUDA events around each collective), and peak GiB
+              beside one process's; then K5's build and lookup on each gloo
+              rank's columns at the main path's shapes against their twins,
+              the ranks in turns (the kernels line's ``spatial`` rows). Then one train step of
+              stereo_v1 at batch 1 on spatial 2 against one process (the dp
+              phase's bounds and checks), and 2 steps of the train CLI with
+              ``--n_devices 2 --batch_size 1``.
 
 ``--profile`` adds a per-module and per-op time breakdown of one 736x1280 pair
 for the served configuration, for the one with the 3x3 conv kernel (with
@@ -125,9 +146,11 @@ launches (24 and 565).
 
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
-sharded requests for K5 and K3s; ``offline_launches`` over the offline
-phase; ``dp_launches_per_rank`` on the training-shape K3 row: each rank's
-launches in the dp phase's step) and, last, the ``{"ok": true, "device":
+sharded requests for K5 and K3s, the spatial phase's gloo rank 0 over its
+pairs for its K5 rows; ``offline_launches`` over the offline phase;
+``dp_launches_per_rank`` on the training-shape K3 row: each rank's launches
+in the dp phase's step; ``spatial_launches_per_rank_per_pair``: each spatial
+run's launches of the row's kernel per pair on every rank) and, last, the ``{"ok": true, "device":
 {...}}`` line. Any failed check raises, so the exit code is non-zero and no
 result line is printed. Without a CUDA device it exits with code 1 before
 any phase.
@@ -174,13 +197,19 @@ TRAIN = dict(config="configs/train/stereo_v1.json", batch=2, steps=4, save_every
              resume_steps=2, pairs=8, pair_hw=(400, 800))
 TRAIN_VIT_TOKENS = (784 // 14) * (336 // 14) + 1
 # The dp phase: one train step of stereo_v1 on a fixed global batch of 2 in 2
-# ranks against one process, then timed steps, then the train CLI on 2 ranks.
-DP = dict(batch=2, ranks=2, pairs=4, timed_steps=2, cli_steps=2, allreduce_reps=5)
+# ranks (data 2 x spatial 1) against one process, then timed steps.
+DP = dict(batch=2, ranks=2, pairs=4, timed_steps=2, allreduce_reps=5)
+# The spatial phase: the served configuration over data 1 x spatial n meshes
+# of ranks (2 sharing card 0 over gloo; 2 and 4 on distinct cards over nccl
+# where there are as many), the train CLI's steps at --n_devices 2.
+SPATIAL = dict(pairs=2, nccl_ranks=(2, 4), cli_steps=2)
 # The offline phase: eval fixtures at the KITTI 2015 frame size (2 frames per
 # layout, disparities up to 192), and the export at scripts/make_export.py's
 # shape and iteration count.
 OFFLINE = dict(eval_hw=(375, 1242), eval_frames=2, fixture_max_disp=192,
                export_hw=(448, 672), export_iters=22)
+# The kernels every rank of the spatial path runs.
+SPATIAL_KERNELS = ("cost_volume_parts_haloed", "disparity_lookup_shard", "flash_attention")
 # The kernels the offline path runs (the served configuration: no K4).
 OFFLINE_KERNELS = ("cost_volume_parts", "disparity_lookup", "flash_attention")
 # K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
@@ -1047,18 +1076,49 @@ def profile_fp32_pair(dev, pair) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _shard_row(name, source, replaces, shards, stitched_equal, **extra) -> dict:
+def _shard_row(name, source, replaces, shards, stitched_equal, phase="mesh", **extra) -> dict:
     """A kernels-line row for a sharded kernel: the per-shard numbers and,
     at the top level, their means (one launch of a shard)."""
     def mean(key):
         return sum(sh[key] for sh in shards) / len(shards)
 
     by = [sh["bound_by"] for sh in shards]
-    return dict(name=name, route="cuda", source=source, replaces=replaces, phase="mesh",
+    return dict(name=name, route="cuda", source=source, replaces=replaces, phase=phase,
                 max_abs_err=max(sh["max_abs_err"] for sh in shards), ms=mean("ms"),
                 plain_ms=mean("plain_ms"), bound_ms=mean("bound_ms"),
                 bound_by=max(set(by), key=by.count), stitched_equal=stitched_equal,
                 per="one shard's launch (mean over the shards)", shards=shards, **extra)
+
+
+def cost_volume_shard(left, right, rp, D, G, P, j, x0, x1, tag) -> dict:
+    """K5's build on the columns [x0, x1) of ``left`` against its twin (K1's
+    tolerance), timed beside the twin and its bound: the shard's numbers."""
+    import torch
+
+    from foundationstereo_torch.ops import cost_volume, kernels
+
+    B, C, H, _ = left.shape
+    wl, bf = x1 - x0, torch.bfloat16
+    lj = left[..., x0:x1].contiguous()
+    gk, rk = kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
+    grid = cost_volume_launched(lj, D, G, P)
+    gp, rpp = cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
+    torch.cuda.synchronize()
+    max_err, ok = cost_volume_errors(gk, rk, gp, rpp)
+    ms = cuda_ms(lambda: kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf), 20)
+    plain_ms = cuda_ms(lambda: cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0,
+                                                                    out_dtype=bf), 3)
+    ws = max(x0 - (D - 1), 0)                     # the right columns this shard reads
+    nbytes = (lj.numel() + B * (C + P) * H * (x0 + wl - ws)) * 2 + (gk.numel() + rk.numel()) * 2
+    pairs = sum(min(D, x0 + w + 1) for w in range(wl))   # (w, d) with x0 + w - d >= 0
+    b_ms, b_by = bound(nbytes, 2.0 * C * B * H * pairs, FP32_FLOPS)
+    log(f"[{tag}] cost_volume_parts_haloed shard {j}: columns [{x0}, {x1}), {x0 - ws} halo "
+        f"columns, max abs err {max_err:.3g} (tolerance: 1 bf16 ulp + 2e-6 per element, rps exact "
+        f"-> {ok}); {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}); grid "
+        f"{grid['blocks']} blocks ({grid['tile']})")
+    check(ok, f"cost_volume_parts_haloed shard {j} disagrees with its twin")
+    return dict(shard=j, x_offset=x0, columns=wl, halo_columns=x0 - ws, max_abs_err=max_err,
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, grid=grid)
 
 
 def check_cost_volume_sharded(dev, gen, mesh) -> dict:
@@ -1066,35 +1126,12 @@ def check_cost_volume_sharded(dev, gen, mesh) -> dict:
     the stitched parts against K1's."""
     import torch
 
-    from foundationstereo_torch.ops import cost_volume, kernels, sharded
+    from foundationstereo_torch.ops import kernels, sharded
 
     left, right, rp, D, G, P = cost_volume_inputs(dev, gen)
-    B, C, H, W = left.shape
-    wl, bf = W // MESH_SHARDS, torch.bfloat16
-    shards = []
-    for j in range(MESH_SHARDS):
-        x0 = j * wl
-        lj = left[..., x0:x0 + wl].contiguous()
-        gk, rk = kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
-        grid = cost_volume_launched(lj, D, G, P)
-        gp, rpp = cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf)
-        torch.cuda.synchronize()
-        max_err, ok = cost_volume_errors(gk, rk, gp, rpp)
-        ms = cuda_ms(lambda: kernels.cost_volume_parts_haloed(lj, right, rp, D, G, x0, out_dtype=bf), 20)
-        plain_ms = cuda_ms(lambda: cost_volume.cost_volume_parts_haloed(lj, right, rp, D, G, x0,
-                                                                        out_dtype=bf), 3)
-        ws = max(x0 - (D - 1), 0)                     # the right columns this shard reads
-        nbytes = (lj.numel() + B * (C + P) * H * (x0 + wl - ws)) * 2 + (gk.numel() + rk.numel()) * 2
-        pairs = sum(min(D, x0 + w + 1) for w in range(wl))   # (w, d) with x0 + w - d >= 0
-        b_ms, b_by = bound(nbytes, 2.0 * C * B * H * pairs, FP32_FLOPS)
-        log(f"[mesh] cost_volume_parts_haloed shard {j}: x_offset {x0}, {x0 - ws} halo columns, "
-            f"max abs err {max_err:.3g} (tolerance: 1 bf16 ulp + 2e-6 per element, rps exact -> "
-            f"{ok}); {ms:.4g} ms, plain {plain_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}); grid "
-            f"{grid['blocks']} blocks ({grid['tile']})")
-        check(ok, f"cost_volume_parts_haloed shard {j} disagrees with its twin")
-        shards.append(dict(shard=j, x_offset=x0, halo_columns=x0 - ws, max_abs_err=max_err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, grid=grid))
-        del gk, rk, gp, rpp
+    wl, bf = left.shape[-1] // MESH_SHARDS, torch.bfloat16
+    shards = [cost_volume_shard(left, right, rp, D, G, P, j, j * wl, (j + 1) * wl, "mesh")
+              for j in range(MESH_SHARDS)]
     got = sharded.cost_volume_parts_sharded(left, right, rp, D, G, mesh, out_dtype=bf)
     want = kernels.cost_volume_parts(left, right, rp, D, G, out_dtype=bf)
     equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
@@ -1109,41 +1146,50 @@ def check_cost_volume_sharded(dev, gen, mesh) -> dict:
                       sharded_call_ms=sharded_ms)
 
 
+def lookup_shard(geo, corr, disp, r, j, x0, x1, tag) -> dict:
+    """K5's lookup on the columns [x0, x1) of the pyramids against its twin
+    (K2's tolerance), timed beside the twin, ``F.grid_sample`` and its
+    bound: the shard's numbers."""
+    import torch
+
+    from foundationstereo_torch.ops import kernels, sampler
+
+    bf = torch.bfloat16
+    gj = [g[:, :, x0:x1].contiguous() for g in geo]
+    cj = [c[:, :, x0:x1].contiguous() for c in corr]
+    dj = disp[..., x0:x1].contiguous()
+    out = kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf)
+    grid = lookup_launched(gj, dj)
+    ref = sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf, x_offset=x0)
+    torch.cuda.synchronize()
+    err, ok = lookup_errors(out, ref)
+    ms = cuda_ms(lambda: kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf), 20)
+    plain_ms = cuda_ms(lambda: sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf,
+                                                        x_offset=x0), 3)
+    library_ms = cuda_ms(lookup_library(gj, cj, dj, r, x0), 5)
+    b_ms, b_by = lookup_bound(gj, cj, dj, r, out, x0)
+    sector_ms = lookup_sector_bound(gj, cj, dj, r, out, x0)
+    log(f"[{tag}] disparity_lookup_shard shard {j}: columns [{x0}, {x1}), out {tuple(out.shape)}, "
+        f"max abs err {err:.3g} (tolerance: 1 bf16 ulp + 1e-6 per element -> {ok}); {ms:.4g} ms, "
+        f"plain {plain_ms:.4g} ms, F.grid_sample x 8 {library_ms:.4g} ms, bound {b_ms:.4g} ms "
+        f"({b_by}), sector floor {sector_ms:.4g} ms; grid {grid['blocks']} blocks")
+    check(ok, f"disparity_lookup_shard shard {j} disagrees with its twin")
+    return dict(shard=j, x_offset=x0, columns=x1 - x0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, grid=grid)
+
+
 def check_lookup_sharded(dev, gen, mesh) -> dict:
     """K5's lookup for each width shard against its twin (K2's tolerance),
     and the stitched output against K2's."""
     import torch
 
-    from foundationstereo_torch.ops import kernels, sampler, sharded
+    from foundationstereo_torch.ops import kernels, sharded
 
     r, bf = 4, torch.bfloat16
     geo, corr, disp = _pyramids(dev, gen, 4, bf)
     wl = disp.shape[-1] // MESH_SHARDS
-    shards = []
-    for j in range(MESH_SHARDS):
-        x0 = j * wl
-        gj = [g[:, :, x0:x0 + wl].contiguous() for g in geo]
-        cj = [c[:, :, x0:x0 + wl].contiguous() for c in corr]
-        dj = disp[..., x0:x0 + wl].contiguous()
-        out = kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf)
-        grid = lookup_launched(gj, dj)
-        ref = sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf, x_offset=x0)
-        torch.cuda.synchronize()
-        err, ok = lookup_errors(out, ref)
-        ms = cuda_ms(lambda: kernels.disparity_lookup_shard(gj, cj, dj, r, x0, out_dtype=bf), 20)
-        plain_ms = cuda_ms(lambda: sampler.disparity_lookup(gj, cj, dj, r, out_dtype=bf,
-                                                            x_offset=x0), 3)
-        library_ms = cuda_ms(lookup_library(gj, cj, dj, r, x0), 5)
-        b_ms, b_by = lookup_bound(gj, cj, dj, r, out, x0)
-        sector_ms = lookup_sector_bound(gj, cj, dj, r, out, x0)
-        log(f"[mesh] disparity_lookup_shard shard {j}: x_offset {x0}, out {tuple(out.shape)}, max abs "
-            f"err {err:.3g} (tolerance: 1 bf16 ulp + 1e-6 per element -> {ok}); {ms:.4g} ms, plain "
-            f"{plain_ms:.4g} ms, F.grid_sample x 8 {library_ms:.4g} ms, bound {b_ms:.4g} ms "
-            f"({b_by}), sector floor {sector_ms:.4g} ms; grid {grid['blocks']} blocks")
-        check(ok, f"disparity_lookup_shard shard {j} disagrees with its twin")
-        shards.append(dict(shard=j, x_offset=x0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=library_ms, bound_ms=b_ms, bound_by=b_by, grid=grid))
-        del gj, cj, out, ref
+    shards = [lookup_shard(geo, corr, disp, r, j, j * wl, (j + 1) * wl, "mesh")
+              for j in range(MESH_SHARDS)]
     pyr = sharded.shard_pyramids(geo, corr, mesh)
     got = sharded.disparity_lookup_sharded(pyr, disp, r, bf)
     equal = bool(torch.equal(got, kernels.disparity_lookup(geo, corr, disp, r, bf)))
@@ -1254,7 +1300,7 @@ def check_attention_shard_fp32(qkv32, scale, h0, hl, ref, sms) -> dict:
                 fp32_library_ms=library_ms, fp32_grid=grid)
 
 
-def serve_pairs(model, pairs, label: str) -> tuple[list, list, float]:
+def serve_pairs(model, pairs, label: str, tag: str = "mesh") -> tuple[list, list, float]:
     """The pairs through ``run_pair``: (disparities, seconds, peak GiB)."""
     import torch
 
@@ -1271,17 +1317,18 @@ def serve_pairs(model, pairs, label: str) -> tuple[list, list, float]:
         check(bool(torch.isfinite(disp).all()), f"non-finite disparity ({label})")
         outs.append(disp)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[mesh] {label}: seconds per pair {[round(t, 4) for t in times]}, peak memory {peak:.2f} GiB")
+    log(f"[{tag}] {label}: seconds per pair {[round(t, 4) for t in times]}, peak memory "
+        f"{peak:.2f} GiB")
     return outs, times, peak
 
 
-def compare_disparities(label: str, got: list, want: list) -> None:
+def compare_disparities(label: str, got: list, want: list, tag: str = "mesh") -> None:
     import torch
 
     for i, (a, b) in enumerate(zip(got, want)):
-        diff = (a.float() - b.float()).abs()
+        diff = (a.float() - b.float().to(a.device)).abs()
         mean, p99 = float(diff.mean()), float(torch.quantile(diff.flatten(), 0.99))
-        log(f"[mesh] pair {i}: {label} |d disp| mean {mean:.4g} px, p99 {p99:.4g} px, max "
+        log(f"[{tag}] pair {i}: {label} |d disp| mean {mean:.4g} px, p99 {p99:.4g} px, max "
             f"{float(diff.max()):.4g} px, equal bit for bit {bool(torch.equal(a, b))} (tolerance: "
             f"mean <= 0.05 px, p99 <= 0.5 px)")
         check(mean <= 0.05 and p99 <= 0.5, f"pair {i}: {label} disagree")
@@ -1798,10 +1845,13 @@ def profile_train_step(trainer, state, batch) -> None:
 # ---------------------------------------------------------------------------
 
 
-def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True) -> dict:
+def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True,
+            mesh_shape: tuple = (DP["ranks"], 1)) -> dict:
     """One ``Trainer.train_step`` from the seeded state on this process's
     part of the global batch at ``batch_path`` (all of it without a process
-    group; the ViT's attention through K3, or its twin with ``k3`` False),
+    group; in one, over a ``RankMesh`` of ``mesh_shape``: its data index's
+    rows, and its columns where ``spatial`` > 1; the ViT's attention through
+    K3, or its twin with ``k3`` False),
     then ``timed_steps`` more timed on the host's clock around a
     synchronize; and, in a group, the gradient all-reduce alone on a buffer
     of the trainable gradients' size, timed with CUDA events. Returns the
@@ -1812,13 +1862,14 @@ def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True) -> dict:
 
     from foundationstereo_torch.models.dinov2 import Attention
     from foundationstereo_torch.ops import kernels
-    from foundationstereo_torch.parallel import distributed
+    from foundationstereo_torch.parallel import distributed, make_mesh, mesh_context
     from foundationstereo_torch.train.cli import replica_tensors, step_rng
     from foundationstereo_torch.train.trainer import Trainer
 
     torch.cuda.reset_peak_memory_stats(dev)
     host = torch.load(batch_path, weights_only=False)
-    batch = distributed.host_local_batch_to_global(distributed.local_slice(host), dev)
+    mesh = make_mesh(shape=mesh_shape) if distributed.world_size() > 1 else None
+    batch = distributed.host_local_batch_to_global(distributed.local_slice(host, mesh), dev)
     trainer = Trainer(config, seed=0, device=dev)
     state = trainer.init_state()
     for m in state.model.modules():
@@ -1835,7 +1886,8 @@ def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True) -> dict:
 
     trainer._apply_grads = capture
     kernels.reset_launches()
-    state, metrics = trainer.train_step(state, batch)
+    with mesh_context(mesh):
+        state, metrics = trainer.train_step(state, batch)
     launches = dict(kernels.LAUNCHES)
     del trainer._apply_grads
     metrics = {k: float(v) for k, v in metrics.items()}
@@ -1851,7 +1903,8 @@ def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True) -> dict:
         batch["rng"] = step_rng(0, i + 1)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        trainer.train_step(state, batch)
+        with mesh_context(mesh):
+            trainer.train_step(state, batch)
         torch.cuda.synchronize(dev)
         secs.append(time.perf_counter() - t0)
     trainable = sum(g.numel() for g in grads.values())
@@ -1875,7 +1928,7 @@ def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True) -> dict:
 
 
 def _dp_rank(rank: int, world: int, url: str, backend: str, config, batch_path, out_dir,
-             timed_steps: int) -> None:
+             timed_steps: int, mesh_shape: tuple) -> None:
     """A spawned rank of the dp phase: ``dp_step`` on card ``rank`` (``nccl``)
     or card 0 (``gloo``: the ranks share it); rank 0 keeps everything, the
     others their launches, checksums, timings and memory."""
@@ -1889,7 +1942,7 @@ def _dp_rank(rank: int, world: int, url: str, backend: str, config, batch_path, 
     torch.backends.cudnn.allow_tf32 = False
     distributed.initialize(url, world, rank, backend)
     try:
-        out = dp_step(dev, config, batch_path, timed_steps)
+        out = dp_step(dev, config, batch_path, timed_steps, mesh_shape=mesh_shape)
     finally:
         torch.distributed.destroy_process_group()
     if rank:
@@ -1937,11 +1990,12 @@ def dp_compare(label: str, got: dict, want: dict, grads_bound: bool) -> dict:
 
 
 def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
-             precision: str, timed_steps: int) -> list[int]:
-    """``DP["ranks"]`` spawned ranks over ``backend`` take the step; every
-    rank's checksums equal rank 0's, each rank launched K3 ``depth`` times and
-    no other kernel, and rank 0's step is held to the one-process step.
-    Returns each rank's K3 launches."""
+             precision: str, timed_steps: int, mesh_shape: tuple = (DP["ranks"], 1),
+             tag: str = "dp") -> list[int]:
+    """``DP["ranks"]`` spawned ranks over ``backend`` take the step over a
+    ``RankMesh`` of ``mesh_shape``; every rank's checksums equal rank 0's,
+    each rank launched K3 ``depth`` times and no other kernel, and rank 0's
+    step is held to the one-process step. Returns each rank's K3 launches."""
     import socket
 
     import torch
@@ -1951,8 +2005,8 @@ def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
         sock.bind(("localhost", 0))
         url = f"tcp://localhost:{sock.getsockname()[1]}"
     t0 = time.perf_counter()
-    mp.spawn(_dp_rank, args=(DP["ranks"], url, backend, config, batch_path, tmp, timed_steps),
-             nprocs=DP["ranks"], join=True)
+    mp.spawn(_dp_rank, args=(DP["ranks"], url, backend, config, batch_path, tmp, timed_steps,
+                             mesh_shape), nprocs=DP["ranks"], join=True)
     wall = time.perf_counter() - t0
     outs = [torch.load(tmp / f"{backend}_rank{r}.pt", weights_only=False)
             for r in range(DP["ranks"])]
@@ -1962,20 +2016,21 @@ def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
         want_launches = dict.fromkeys(out["launches"], 0)
         want_launches["flash_attention"] = depth
         check(out["launches"] == want_launches,
-              f"[dp] {backend} rank {r} launched {out['launches']}, expected {depth} K3")
+              f"[{tag}] {backend} rank {r} launched {out['launches']}, expected {depth} K3")
         check(bool((out["checksums"] == outs[0]["checksums"]).all()),
-              f"[dp] {backend}: rank {r}'s parameters differ from rank 0's")
+              f"[{tag}] {backend}: rank {r}'s parameters differ from rank 0's")
     cards = "one card, shared" if backend == "gloo" else f"{DP['ranks']} cards"
-    label = f"{precision}: {DP['ranks']} ranks over {backend} ({cards})"
+    label = (f"{precision}: {DP['ranks']} ranks (data {mesh_shape[0]} x spatial {mesh_shape[1]}) "
+             f"over {backend} ({cards})")
     dp_compare(label, outs[0], want, grads_bound=precision == "fp32")
     nbytes = 4 * outs[0]["trainable"]
     ring = 2 * (DP["ranks"] - 1) / DP["ranks"] * nbytes
     for r, out in enumerate(outs):
-        log(f"[dp] {label}, rank {r}: launches {out['launches']}, warm steps "
+        log(f"[{tag}] {label}, rank {r}: launches {out['launches']}, warm steps "
             f"{[round(x, 4) for x in out['secs']]} s, gradient all-reduce "
             f"{[round(x, 3) for x in out['allreduce_ms']]} ms ({nbytes} bytes of fp32 "
             f"gradients, {ring:.0f} bytes sent per rank by a ring), peak {out['peak_gib']:.2f} GiB")
-    log(f"[dp] {label}: parameters, stats and EMA bit for bit across the ranks; spawn to join "
+    log(f"[{tag}] {label}: parameters, stats and EMA bit for bit across the ranks; spawn to join "
         f"{wall:.1f} s")
     return [o["launches"]["flash_attention"] for o in outs]
 
@@ -1985,9 +2040,10 @@ def dp_phase(dev) -> list[int]:
     ``DP["batch"]`` pairs from the pipeline, one process's step on it, then
     ``DP["ranks"]`` ranks sharing card 0 over ``gloo`` (and, with two or more
     cards, one card each over ``nccl``) on the same batch, each held to the
-    one-process step; then ``DP["cli_steps"]`` steps of the train CLI with
-    ``--n_devices 2``. Returns the K3 launches of each rank's bf16 step
-    over ``gloo``."""
+    one-process step, through the API with an explicit data 2 x spatial 1
+    ``RankMesh`` (the train CLI's ``--n_devices 2`` is spatial 2 since the
+    width partition: the spatial phase runs it). Returns the K3 launches of
+    each rank's bf16 step over ``gloo``."""
     import copy
     import json as _json
     import tempfile
@@ -2047,28 +2103,6 @@ def dp_phase(dev) -> list[int]:
         dp_ranks("gloo", config32, batch_path, tmp, want32, depth, "fp32", 0)
         del want32
 
-        ws = tmp / "ws"
-        t0 = time.perf_counter()
-        line = cli.main(["--config", TRAIN["config"], "--workspace", str(ws), "--device", "cuda",
-                         "--n_devices", str(DP["ranks"]), "--num_iterations", str(DP["cli_steps"]),
-                         "--batch_size", str(DP["batch"]), "--save_every", str(DP["cli_steps"]),
-                         "--log_every", "1", "--checkpoint", "none",
-                         "--override", f"data.datasets.0.path={tmp / 'data'}"]
-                        + ([] if cards >= DP["ranks"] else ["--dist_backend", "gloo"]))
-        secs = time.perf_counter() - t0
-        lines = [_json.loads(x) for x in (ws / "metrics.jsonl").read_text().splitlines()]
-        check([x["step"] for x in lines] == list(range(DP["cli_steps"])),
-              f"[dp] CLI steps {[x['step'] for x in lines]}")
-        for x in lines:
-            check(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0.0, f"[dp] CLI line {x}")
-        files = {p.name for p in (ws / "checkpoints").iterdir()}
-        n = DP["cli_steps"]
-        check({f"{n}.pt", f"{n}_ema.pt", f"{n}_optimizer.pt", "latest.pt"} <= files,
-              f"[dp] CLI checkpoints {sorted(files)}")
-        log(f"[dp] the train CLI, --n_devices {DP['ranks']} "
-            f"({'nccl' if cards >= DP['ranks'] else 'gloo, one card'}): {n} steps in {secs:.1f} s "
-            f"(spawn, build, steps, save), loss {[round(x['loss'], 4) for x in lines]}, "
-            f"t_dispatch {[round(x['t_dispatch'], 4) for x in lines]} s, last line {line.get('step')}")
     return launches
 
 
@@ -2308,11 +2342,261 @@ def offline_phase(dev, profile: bool = False) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: width partitioning over the ranks of a spatial mesh
+# ---------------------------------------------------------------------------
+
+
+def _spatial_rank(rank: int, world: int, url: str, backend: str, pairs: int, out_dir) -> None:
+    """A spawned rank of the spatial phase, on card ``rank`` (``nccl``) or
+    card 0 (``gloo``: the ranks share it): the served configuration under a
+    data 1 x spatial ``world`` mesh answers ``pairs`` pairs through
+    ``run_pair``, each with the launches and the partition's collectives
+    (count and ms) counted from 0 around it; then K5's build and lookup on
+    this rank's columns at the main path's shapes against their twins.
+    Writes its numbers (rank 0 also the disparities)."""
+    import torch
+
+    from foundationstereo_torch.config import ModelConfig
+    from foundationstereo_torch.inference.demo import run_pair
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.parallel import distributed, make_mesh, mesh_context, spatial
+
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False        # as main() sets them
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(url, world, rank, backend)
+    try:
+        mesh = make_mesh(shape=(1, world))
+        cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=True)
+        model = FoundationStereo(cfg, device=dev, seed=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        records, outs = [], []
+        for i in range(pairs):
+            left, right = make_pair(MAIN["height"], MAIN["width"], 100 + i)
+            distributed.barrier(dev)
+            kernels.reset_launches()
+            spatial.reset_exchanges()
+            with spatial.timed() as timer, mesh_context(mesh):
+                t0 = time.perf_counter()
+                disp = run_pair(model, left, right, iters=MAIN["iters"])
+                torch.cuda.synchronize(dev)
+                secs = time.perf_counter() - t0
+            records.append(dict(secs=secs, launches=dict(kernels.LAUNCHES),
+                                exchanges=dict(spatial.EXCHANGES),
+                                exchange_ms=spatial.exchange_ms(timer)))
+            check(tuple(disp.shape) == (1, MAIN["height"], MAIN["width"])
+                  and bool(torch.isfinite(disp).all()), f"[spatial] rank {rank}: disparity")
+            outs.append(disp.float().cpu())
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        del model
+        torch.cuda.empty_cache()
+        # The first pair in fp32: the partition's rounding apart from bf16's.
+        fp32 = cfg.replace(mixed_precision=False, bf16_pyramids=False)
+        model = FoundationStereo(fp32, device=dev, seed=0)
+        with mesh_context(mesh):
+            disp32 = run_pair(model, *make_pair(MAIN["height"], MAIN["width"], 100),
+                              iters=MAIN["iters"]).float().cpu()
+        del model
+        torch.cuda.empty_cache()
+        # K5 on this rank's columns, the ranks in turns (they may share a card).
+        part = spatial.Partition(mesh, MAIN["width"])
+        for turn in range(world):
+            distributed.barrier(dev)
+            if turn != rank:
+                continue
+            gen = torch.Generator(device=dev).manual_seed(1)
+            left, right, rp, D, G, P = cost_volume_inputs(dev, gen)
+            c0, c1 = part.columns(left.shape[-1])
+            tag = f"spatial rank {rank}"
+            build = cost_volume_shard(left, right, rp, D, G, P, rank, c0, c1, tag)
+            del left, right, rp
+            geo, corr, disp = _pyramids(dev, gen, 4, torch.bfloat16)
+            lookup = lookup_shard(geo, corr, disp, 4, rank, c0, c1, tag)
+            del geo, corr, disp
+            torch.cuda.empty_cache()
+        distributed.barrier(dev)
+        torch.save(dict(records=records, disp=outs if rank == 0 else [], disp32=disp32,
+                        checksum=[float(o.double().sum()) for o in outs + [disp32]],
+                        peak_gib=peak, build=build, lookup=lookup),
+                   out_dir / f"spatial_{backend}{world}_rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spatial_ranks(backend: str, world: int, want: list, want32, want_secs: list,
+                  want_peak: float, tmp) -> list[dict]:
+    """``world`` spawned ranks over ``backend`` serve the pairs of ``want``
+    (the one process's disparities): each rank's launches per pair must be
+    1 K5 build, 32 K5 lookups and 24 K3 and nothing else, every rank's
+    gathered disparity the same and within mean 0.05 px and p99 0.5 px of
+    one process's; the first pair in fp32 within max 1e-2 px of one
+    process's ``want32`` (the path phase's fp32 limit). Logs each rank's
+    s/pair, collectives per pair and their ms, and peak GiB; returns the
+    ranks' records."""
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from foundationstereo_torch.config import VIT_CONFIGS
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        url = f"tcp://localhost:{sock.getsockname()[1]}"
+    t0 = time.perf_counter()
+    mp.spawn(_spatial_rank, args=(world, url, backend, len(want), tmp), nprocs=world, join=True)
+    wall = time.perf_counter() - t0
+    outs = []
+    for r in range(world):
+        path = tmp / f"spatial_{backend}{world}_rank{r}.pt"
+        outs.append(torch.load(path, weights_only=False))
+        path.unlink()
+    cards = "one card, shared" if backend == "gloo" else f"{world} cards"
+    label = f"data 1 x spatial {world} over {backend} ({cards})"
+    expect = dict.fromkeys(outs[0]["records"][0]["launches"], 0)
+    expect.update(cost_volume_parts_haloed=1, disparity_lookup_shard=MAIN["iters"],
+                  flash_attention=VIT_CONFIGS[MAIN["vit_size"]]["depth"])
+    for r, out in enumerate(outs):
+        for i, rec in enumerate(out["records"]):
+            check(rec["launches"] == expect, f"[spatial] {label}, rank {r}, pair {i}: launches "
+                                             f"{rec['launches']}, expected {expect}")
+        check(out["checksum"] == outs[0]["checksum"],
+              f"[spatial] {label}: rank {r}'s gathered disparity differs from rank 0's")
+        ex = out["records"][-1]["exchanges"]
+        log(f"[spatial] {label}, rank {r}: seconds per pair "
+            f"{[round(x['secs'], 4) for x in out['records']]} (one process "
+            f"{[round(x, 4) for x in want_secs]}), per pair {ex['halo']} halo exchanges and "
+            f"{ex['gather']} gather ({ex['bytes']} bytes of buffers), their ms "
+            f"{[round(x['exchange_ms'], 2) for x in out['records']]}, peak {out['peak_gib']:.2f} "
+            f"GiB (one process {want_peak:.2f}), launches per pair {out['records'][-1]['launches']}")
+    compare_disparities(f"{label} vs one process", outs[0]["disp"], want, tag="spatial")
+    d32 = float((outs[0]["disp32"] - want32).abs().max())
+    log(f"[spatial] {label}, fp32 (mixed_precision=False), pair 0: max |d disp| against one "
+        f"process {d32:.4g} px (tolerance 1e-2 px)")
+    check(d32 <= 1e-2, f"[spatial] {label}: the fp32 disparity disagrees with one process's")
+    log(f"[spatial] {label}: the same gathered disparity on every rank; spawn to join {wall:.1f} s")
+    return outs
+
+
+def spatial_phase(dev) -> tuple[list, dict, dict]:
+    """The served configuration with its width split over ranks: one
+    process serves SPATIAL["pairs"] pairs, then 2 ranks sharing card 0 over
+    ``gloo`` (and 2, 4 ranks on distinct cards over ``nccl`` where there
+    are as many cards) serve them under a data 1 x spatial n mesh; then one
+    train step of stereo_v1 at batch 1 on spatial 2 against one process,
+    with the dp phase's bounds; then the train CLI with ``--n_devices 2
+    --batch_size 1``. Returns the kernels-line rows (K5's build and lookup
+    on the gloo ranks' columns), rank 0's launches over its pairs, and each
+    run's launches per pair on every rank ({"gloo x 2": {name: [per rank]}})."""
+    import copy
+    import json as _json
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
+    from foundationstereo_torch.models.foundation_stereo import FoundationStereo
+    from foundationstereo_torch.train import cli
+    from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
+
+    cards = torch.cuda.device_count()
+    cfg = ModelConfig(vit_size=MAIN["vit_size"], max_disp=MAIN["max_disp"], mixed_precision=True)
+    model = FoundationStereo(cfg, device=dev, seed=0)
+    pairs = [make_pair(MAIN["height"], MAIN["width"], 100 + i) for i in range(SPATIAL["pairs"])]
+    outs, secs, peak = serve_pairs(model, pairs, "one process", tag="spatial")
+    want = [o.float().cpu() for o in outs]
+    del model, outs
+    torch.cuda.empty_cache()
+    model = FoundationStereo(cfg.replace(mixed_precision=False, bf16_pyramids=False), device=dev,
+                             seed=0)
+    want32 = serve_pairs(model, pairs[:1], "one process, fp32", tag="spatial")[0][0].float().cpu()
+    del model
+    torch.cuda.empty_cache()
+    runs = [("gloo", 2)] + [("nccl", n) for n in SPATIAL["nccl_ranks"] if cards >= n]
+    per_rank = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for backend, world in runs:
+            ranks = spatial_ranks(backend, world, want, want32, secs, peak, tmp)
+            per_rank[f"{backend} x {world}"] = {
+                name: [o["records"][-1]["launches"][name] for o in ranks]
+                for name in ranks[0]["records"][0]["launches"]}
+            if backend == "gloo":
+                gloo = ranks
+        if cards < 2:
+            log("[spatial] one card: nccl across cards not run")
+        rows = []
+        for key, name, source, replaces in (
+                ("build", "cost_volume_parts_haloed", "foundationstereo_torch/csrc/cost_volume.cu",
+                 "foundationstereo_tpu/ops/pallas_kernels.py:538"),
+                ("lookup", "disparity_lookup_shard", "foundationstereo_torch/csrc/lookup.cu",
+                 "foundationstereo_tpu/ops/pallas_kernels.py:321")):
+            shards = [o[key] for o in gloo]
+            library = (None if key == "build"
+                       else sum(sh["library_ms"] for sh in shards) / len(shards))
+            rows.append(_shard_row(name, source, replaces, shards, None, phase="spatial",
+                                   library_ms=library))
+        launches = {}
+        for rec in gloo[0]["records"]:
+            for k, v in rec["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+
+        config = _json.loads(Path(TRAIN["config"]).read_text())
+        depth = VIT_CONFIGS[ModelConfig.from_dict(config["model"]).vit_size]["depth"]
+        write_train_dataset(tmp / "data", 2, TRAIN["pair_hw"])
+        config = copy.deepcopy(config)
+        config["data"]["datasets"][0]["path"] = str(tmp / "data")
+        pipe = StereoTrainDataLoaderPipeline(config["data"], 1)
+        host = cli.host_batch(pipe.get(), config["loss"])
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in host.items()}
+        host["rng"] = cli.step_rng(0, 0)
+        batch_path = tmp / "batch.pt"
+        torch.save(host, batch_path)
+        one = dp_step(dev, config, batch_path, 1)
+        log(f"[spatial] bf16 train step, one process, batch 1 {tuple(host['left'].shape)}: loss "
+            f"{one['metrics']['loss']:.6g}, gradient norm {one['metrics']['grad_norm']:.6g}, warm "
+            f"step {[round(x, 4) for x in one['secs']]} s, peak {one['peak_gib']:.2f} GiB")
+        backend = "nccl" if cards >= 2 else "gloo"
+        dp_ranks(backend, config, batch_path, tmp, one, depth, "bf16", 1, mesh_shape=(1, 2),
+                 tag="spatial")
+        del one
+
+        ws = tmp / "ws"
+        t0 = time.perf_counter()
+        cli.main(["--config", TRAIN["config"], "--workspace", str(ws), "--device", "cuda",
+                  "--n_devices", "2", "--num_iterations", str(SPATIAL["cli_steps"]),
+                  "--batch_size", "1", "--save_every", str(SPATIAL["cli_steps"]),
+                  "--log_every", "1", "--checkpoint", "none",
+                  "--override", f"data.datasets.0.path={tmp / 'data'}"]
+                 + ([] if cards >= 2 else ["--dist_backend", "gloo"]))
+        secs = time.perf_counter() - t0
+        lines = [_json.loads(x) for x in (ws / "metrics.jsonl").read_text().splitlines()]
+        n = SPATIAL["cli_steps"]
+        check([x["step"] for x in lines] == list(range(n)), f"[spatial] CLI steps {lines}")
+        for x in lines:
+            check(math.isfinite(x["loss"]) and x["skipped_nonfinite"] == 0.0,
+                  f"[spatial] CLI line {x}")
+        files = {p.name for p in (ws / "checkpoints").iterdir()}
+        check({f"{n}.pt", f"{n}_ema.pt", f"{n}_optimizer.pt", "latest.pt"} <= files,
+              f"[spatial] CLI checkpoints {sorted(files)}")
+        log(f"[spatial] the train CLI, --n_devices 2 --batch_size 1 (data 1 x spatial 2, "
+            f"{backend}{', one card' if cards < 2 else ''}): {n} steps in {secs:.1f} s (spawn, "
+            f"steps, save), loss {[round(x['loss'], 4) for x in lines]}, t_dispatch "
+            f"{[round(x['t_dispatch'], 4) for x in lines]} s")
+    return rows, launches, per_rank
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,path,serve,demo,mesh,train,dp,offline",
+    ap.add_argument("--phases",
+                    default="env,build,kernels,path,serve,demo,mesh,train,dp,offline,spatial",
                     help="comma-separated subset of "
-                         "env,build,kernels,path,serve,demo,mesh,train,dp,offline")
+                         "env,build,kernels,path,serve,demo,mesh,train,dp,offline,spatial")
     ap.add_argument("--profile", action="store_true",
                     help="time one more 736x1280 pair per module and under torch.profiler, for "
                          "the served configuration, the one with the 3x3 conv kernel and the "
@@ -2390,7 +2674,15 @@ def main() -> int:
         offline_launches = offline_phase(dev, args.profile)
         log(f"[offline] {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
-    by_phase = {"demo": launches, "mesh": mesh_launches, "train": train_launches}
+    spatial_launches, spatial_per_rank = {}, {}
+    if "spatial" in phases:
+        t0 = time.perf_counter()
+        spatial_rows, spatial_launches, spatial_per_rank = spatial_phase(dev)
+        rows += spatial_rows
+        log(f"[spatial] {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    by_phase = {"demo": launches, "mesh": mesh_launches, "train": train_launches,
+                "spatial": spatial_launches}
     for row in rows:
         row.setdefault("phase", "demo")
         row["launches"] = by_phase[row["phase"]].get(row["name"], 0)
@@ -2398,6 +2690,11 @@ def main() -> int:
         row["offline_launches"] = offline_launches.get(row["name"], 0)
         row["dp_launches_per_rank"] = (dp_launches if (row["name"], row["phase"])
                                        == ("flash_attention", "train") else [])
+        row["spatial_launches_per_rank_per_pair"] = {
+            run: by_name[row["name"]] for run, by_name in spatial_per_rank.items()}
+        if "spatial" in phases and row["name"] in SPATIAL_KERNELS:
+            check(all(n > 0 for v in row["spatial_launches_per_rank_per_pair"].values() for n in v),
+                  f"{row['name']} not launched on every rank of the spatial path")
         if row["phase"] in phases:
             check(row["launches"] > 0, f"{row['name']} never launched on the {row['phase']} path")
         if "offline" in phases and row["name"] in OFFLINE_KERNELS and row["phase"] == "demo":

@@ -38,12 +38,26 @@ checkpoints CorrStem, FeatureAtt, Hourglass and Classifier,
 ``remat_refine`` each refinement step and ``scan_upsample`` each step's
 upsampling head (``layers.checkpointed``).
 
-Under a mesh (``parallel.mesh_context``) each forward call picks its kernels
-as the JAX package's ``_pallas_mode`` does (``kernel_mode``): the
-width-sharded build and lookup (``ops/sharded.py``, K5) where the mesh's
+Under a device ``Mesh`` (``parallel.mesh_context``) each forward call picks
+its kernels as the JAX package's ``_pallas_mode`` does (``kernel_mode``):
+the width-sharded build and lookup (``ops/sharded.py``, K5) where the mesh's
 ``spatial`` axis divides W/4, the ViT attention per (batch, heads) shard
 (K3s, ``vit_attention="auto"``), and no 3x3 conv kernel. Every other module
 runs on the model's device.
+
+Under a ``RankMesh`` whose ``spatial`` axis is > 1 (one process per rank,
+``parallel/spatial.py``) the forward is partitioned along image width where
+the JAX package places ``shard_spatial``: ``feature``, ``stem_2``,
+``proj_cmb``, ``cnet``, ``cam`` and ``sam`` run whole on every rank; each
+rank takes its columns of the left features, ``stem_2x`` and the context
+lists, builds its columns of the cost volume against the full right
+features (K5's build, ``kernels.cost_volume_parts_haloed``, with its x
+offset), runs CorrStem, FeatureAtt, the hourglass, the classifier, the
+pyramids, every refinement step (K5's lookup, ``kernels.
+disparity_lookup_shard``) and the upsampling head on them with halo
+exchanges, and the outputs are gathered along W, so every rank returns the
+whole disparity. No 3x3 conv kernel runs, and the ViT's attention is K3
+whole on every rank.
 """
 
 from __future__ import annotations
@@ -71,7 +85,8 @@ from foundationstereo_torch.models.layers import (
 from foundationstereo_torch.models.update import BasicSelectiveMultiUpdateBlock
 from foundationstereo_torch.ops import cost_volume, kernels, sampler, sharded
 from foundationstereo_torch.ops.upsample import context_upsample, disparity_regression
-from foundationstereo_torch.parallel.mesh import Mesh, current_mesh
+from foundationstereo_torch.parallel import spatial
+from foundationstereo_torch.parallel.mesh import Mesh, RankMesh, current_mesh
 from foundationstereo_torch.utils.misc import IMAGENET_MEAN, IMAGENET_STD
 
 
@@ -82,20 +97,24 @@ def normalize_image(img: torch.Tensor) -> torch.Tensor:
     return ((img.float() / 255.0 - mean) / std).permute(0, 3, 1, 2)
 
 
-def kernel_mode(cfg: ModelConfig, mesh: Mesh | None, w4: int,
+def kernel_mode(cfg: ModelConfig, mesh: Mesh | RankMesh | None, w4: int,
                 differentiable: bool = False) -> str:
     """The cost-volume build and lookup of one forward call: "plain" (the
     twins; no ``use_pallas``, or ``differentiable``: in training, as the JAX
     package's ``_pallas_mode`` rules, and wherever the forward takes
-    gradients, since the kernels have no backward), "sharded" (K5, on a
-    mesh whose ``spatial`` axis is > 1 and divides W/4) or "single" (K1 and
-    K2 on the model's device). A mesh whose ``spatial`` axis does not divide W/4 takes
-    "single" where the JAX package takes its XLA forms: the same numbers,
-    and no plain twin serves on the card in inference."""
+    gradients, since the kernels have no backward), "sharded" (K5 shard by
+    shard, on a device mesh whose ``spatial`` axis is > 1 and divides W/4),
+    "rank" (K5 on this rank's columns, under a rank mesh whose ``spatial``
+    axis is > 1) or "single" (K1 and K2 on the model's device). A device
+    mesh whose ``spatial`` axis does not divide W/4 takes "single" where the
+    JAX package takes its XLA forms: the same numbers, and no plain twin
+    serves on the card in inference."""
     if not cfg.use_pallas or differentiable:
         return "plain"
-    spatial = 1 if mesh is None else mesh.shape.get("spatial", 1)
-    return "sharded" if spatial > 1 and w4 % spatial == 0 else "single"
+    n = 1 if mesh is None else mesh.shape.get("spatial", 1)
+    if isinstance(mesh, RankMesh):
+        return "rank" if n > 1 else "single"
+    return "sharded" if n > 1 and w4 % n == 0 else "single"
 
 
 def resolve_device(device) -> torch.device:
@@ -187,6 +206,7 @@ class FoundationStereo(nn.Module):
         B = left.shape[0]
         D = cfg.max_disp // 4
         mesh = current_mesh()
+        part = spatial.partition(mesh, left.shape[2])
         grad = torch.is_grad_enabled()
         differentiable = train or grad
         mode = kernel_mode(cfg, mesh, left.shape[2] // 4, differentiable)
@@ -212,27 +232,39 @@ class FoundationStereo(nn.Module):
 
         # Cost volume as parts: CorrStem contracts them with the left term.
         lproj, rproj = self.proj_cmb(fl[0]), self.proj_cmb(fr[0])
+        if part is not None:        # from here on, this rank's columns
+            fl = [part.take(f) for f in fl]
+            lproj, stem_2x = part.take(lproj), part.take(stem_2x)
         args = (fl[0].contiguous(), fr[0].contiguous(), rproj.contiguous(), D, cfg.cv_group)
         if mode == "sharded":
             gwc, rps = sharded.cost_volume_parts_sharded(*args, mesh, out_dtype=dt)
+        elif part is not None:
+            build = (kernels.cost_volume_parts_haloed if mode == "rank"
+                     else cost_volume.cost_volume_parts_haloed)
+            gwc, rps = build(*args, part.columns(fr[0].shape[-1])[0], out_dtype=dt)
         else:
             build = kernels.cost_volume_parts if mode == "single" else cost_volume.cost_volume_parts
             gwc, rps = build(*args, out_dtype=dt)
-        comb = filt(self.corr_stem, (gwc, rps, lproj))
-        del gwc, rps
-        comb = filt(self.corr_feature_att, comb, fl[0])
-        comb = filt(self.cost_agg, comb, fl)
-
-        # Initial disparity: soft-argmin in fp32.
-        prob = torch.softmax(filt(self.classifier, comb).float(), dim=1)  # (B, D, H/4, W/4)
+        with spatial.region(part):
+            comb = filt(self.corr_stem, (gwc, rps, lproj))
+            del gwc, rps
+            comb = filt(self.corr_feature_att, comb, fl[0])
+            comb = filt(self.cost_agg, comb, fl)
+            # Initial disparity: soft-argmin in fp32.
+            prob = torch.softmax(filt(self.classifier, comb).float(), dim=1)  # (B, D, H/4, W/4)
+        given_disp = init_disp
         if init_disp is None:
             init_disp = disparity_regression(prob, D)
+        elif part is not None:
+            init_disp = part.take(init_disp)
 
         cnet_list = self.cnet(img1, vit_feat)
         net_list = [torch.tanh(h) for h, _ in cnet_list]
         inp_list = [torch.relu(c) for _, c in cnet_list]
         inp_list = [self.cam(x) * x for x in inp_list]
         att = [self.sam(x) for x in inp_list]
+        if part is not None:
+            net_list, inp_list, att = ([part.take(x) for x in xs] for xs in (net_list, inp_list, att))
 
         # Geometry and all-pairs correlation pyramids, pooled in fp32 (and
         # kept in fp32 where gradients flow, as the JAX package's XLA forms
@@ -249,6 +281,10 @@ class FoundationStereo(nn.Module):
         if mode == "sharded":       # the shards' pyramids are cut once, before the loop
             lookup = functools.partial(sharded.disparity_lookup_sharded,
                                        sharded.shard_pyramids(geo_pyr, corr_pyr, mesh))
+        elif part is not None:
+            fn = kernels.disparity_lookup_shard if mode == "rank" else sampler.disparity_lookup
+            lookup = functools.partial(fn, geo_pyr, corr_pyr,
+                                       x_offset=part.columns(fr[0].shape[-1])[0])
         else:
             fn = kernels.disparity_lookup if mode == "single" else sampler.disparity_lookup
             lookup = functools.partial(fn, geo_pyr, corr_pyr)
@@ -260,22 +296,24 @@ class FoundationStereo(nn.Module):
                 net_list, inp_list, geo_feat, disp[:, None].to(dt), att)
             return net_list, disp + delta[:, 0].float(), mask_feat
 
+        gather = (lambda x: x) if part is None else part.gather  # noqa: E731
         disp = init_disp.float().contiguous()
         mask_feat = torch.zeros((B, 32) + disp.shape[1:], device=disp.device, dtype=dt)
         preds = []
-        for _ in range(iters):
-            disp = disp.detach()
-            if remat_refine:
-                net_list, disp, mask_feat = checkpointed(refine, net_list, disp)
-            else:
-                net_list, disp, mask_feat = refine(net_list, disp)
-            if not test_mode:
-                head = (checkpointed(self._upsample_head, disp, mask_feat, stem_2x) if remat_head
-                        else self._upsample_head(disp, mask_feat, stem_2x))
-                preds.append(head)
-        if not test_mode:
-            return init_disp, preds
-        return self._upsample_head(disp, mask_feat, stem_2x)
+        with spatial.region(part):
+            for _ in range(iters):
+                disp = disp.detach()
+                if remat_refine:
+                    net_list, disp, mask_feat = checkpointed(refine, net_list, disp)
+                else:
+                    net_list, disp, mask_feat = refine(net_list, disp)
+                if not test_mode:
+                    head = (checkpointed(self._upsample_head, disp, mask_feat, stem_2x)
+                            if remat_head else self._upsample_head(disp, mask_feat, stem_2x))
+                    preds.append(gather(head))
+            if test_mode:
+                return gather(self._upsample_head(disp, mask_feat, stem_2x))
+        return (gather(init_disp) if given_disp is None else given_disp), preds
 
     def _upsample_head(self, disp, mask_feat, stem_2x):
         """Convex upsampling to full resolution with the spx head."""

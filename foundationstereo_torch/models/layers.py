@@ -31,6 +31,13 @@ recompute in the backward draws the same masks and moves no running stats.
 Inside a ``global_batch`` block each rank of a data-parallel step computes
 its slice as a part of the global batch: batch norm takes the global batch's
 statistics, and dropout the global batch's masks.
+
+Inside a spatial partition (``parallel/spatial.py:region``) each rank holds
+its columns of the image width: every convolution runs on them with the
+halo its kernel reads across the shard borders (none for a kernel one
+column wide), batch norm in training sums its statistics over all the
+mesh's ranks, dropout keeps the rank's columns of the global mask, and the
+norms and pooling over whole images refuse to run.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
+from foundationstereo_torch.parallel import spatial
 from foundationstereo_torch.parallel.distributed import all_reduce_sum
 
 
@@ -137,8 +145,9 @@ class Conv2d(nn.Conv2d):
                 lambda: kernels.pack_conv3x3_weight(self.weight, self.cdt)) if x.is_cuda else None
             return kernels.conv3x3(k4_input(x, self.cdt), self.weight, _cast(self.bias, self.cdt),
                                    packed)
-        return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
-                                  _cast(self.bias, self.cdt))
+        return spatial.conv(F.conv2d, x.to(self.cdt), self.weight.to(self.cdt),
+                            _cast(self.bias, self.cdt), self.stride, self.padding, self.dilation,
+                            self.groups)
 
 
 class Conv3d(nn.Conv3d):
@@ -167,8 +176,9 @@ class Conv3d(nn.Conv3d):
 
     def forward(self, x):
         if self.k4 is None or not self.k4_on:
-            return self._conv_forward(x.to(self.cdt), self.weight.to(self.cdt),
-                                      _cast(self.bias, self.cdt))
+            return spatial.conv(F.conv3d, x.to(self.cdt), self.weight.to(self.cdt),
+                                _cast(self.bias, self.cdt), self.stride, self.padding,
+                                self.dilation, self.groups)
         x = k4_input(x, self.cdt)
         kd = self.kernel_size[0]
         packed = self._k4_weight(
@@ -197,8 +207,8 @@ class ConvTranspose2d(nn.ConvTranspose2d):
         self.cdt = cdt
 
     def forward(self, x):
-        return F.conv_transpose2d(x.to(self.cdt), self.weight.to(self.cdt),
-                                  _cast(self.bias, self.cdt), self.stride, self.padding)
+        return spatial.conv_transpose(F.conv_transpose2d, x.to(self.cdt), self.weight.to(self.cdt),
+                                      _cast(self.bias, self.cdt), self.stride, self.padding)
 
 
 class ConvTranspose3d(nn.ConvTranspose3d):
@@ -209,8 +219,8 @@ class ConvTranspose3d(nn.ConvTranspose3d):
         self.cdt = cdt
 
     def forward(self, x):
-        return F.conv_transpose3d(x.to(self.cdt), self.weight.to(self.cdt),
-                                  _cast(self.bias, self.cdt), self.stride, self.padding)
+        return spatial.conv_transpose(F.conv_transpose3d, x.to(self.cdt), self.weight.to(self.cdt),
+                                      _cast(self.bias, self.cdt), self.stride, self.padding)
 
 
 class Linear(nn.Linear):
@@ -272,12 +282,15 @@ def global_batch(group=None):
         _GLOBAL_GROUP[0] = prev
 
 
-def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            grid: tuple[int, int, int] | None = None) -> torch.Tensor:
     """flax's ``nn.Dropout``: keep with probability 1 - rate (a uniform draw
     below it), scale the kept values by 1 / (1 - rate). Identity outside
     training; in training the mask comes from the ``dropout_generator``
     (inside ``global_batch``, this rank's rows of the global batch's mask:
-    axis 0 is the batch's, outermost)."""
+    axis 0 is the batch's, outermost). Inside a spatial partition axis 0
+    must be (B, H, W) flattened, ``grid``: the mask is drawn for the global
+    width and the rank keeps its columns."""
     if not training or rate == 0.0:
         return x
     gen = _DROPOUT_GEN[0]
@@ -285,11 +298,18 @@ def dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
         raise RuntimeError("train-mode dropout needs a generator: run the forward inside "
                            "layers.dropout_generator(torch.Generator(...))")
     keep_prob = 1.0 - rate
-    group = _GLOBAL_GROUP[0]
-    if group is None:
-        keep = torch.rand(x.shape, generator=gen, device=x.device) < keep_prob
+    group, part = _GLOBAL_GROUP[0], spatial.active()
+    n, r = (1, 0) if group is None else (dist.get_world_size(group), dist.get_rank(group))
+    if part is not None:
+        if grid is None or grid[0] * grid[1] * grid[2] != x.shape[0]:
+            raise ValueError(f"dropout inside the spatial partition needs its rows' (B, H, W) "
+                             f"grid, got {grid} for {x.shape[0]} rows")
+        b, h, w = grid
+        c0, c1 = part.columns(part.global_width(w))
+        full = torch.rand((n * b, h, part.global_width(w)) + x.shape[1:], generator=gen,
+                          device=x.device)
+        keep = full[r * b:(r + 1) * b, :, c0:c1].reshape(x.shape) < keep_prob
     else:
-        n, r = dist.get_world_size(group), dist.get_rank(group)
         rows = x.shape[0]
         keep = torch.rand((n * rows,) + x.shape[1:], generator=gen,
                           device=x.device)[r * rows:(r + 1) * rows] < keep_prob
@@ -306,12 +326,12 @@ def _forward_entry(gen, saved: dict):
 
 
 @contextlib.contextmanager
-def _recompute(gen, group, saved: dict):
+def _recompute(gen, group, part, saved: dict):
     """The recompute of a checkpointed region: the dropout generator back at
     the state the forward began with (and put back where it was after), the
-    forward's ``global_batch`` group (so every rank issues the forward's
-    collectives again, in the same order), and batch norm's running stats
-    left alone."""
+    forward's ``global_batch`` group and spatial partition (so every rank
+    issues the forward's collectives again, in the same order), and batch
+    norm's running stats left alone."""
     _RECOMPUTE[0] += 1
     prev_gen, _DROPOUT_GEN[0] = _DROPOUT_GEN[0], gen
     prev_group, _GLOBAL_GROUP[0] = _GLOBAL_GROUP[0], group
@@ -319,7 +339,8 @@ def _recompute(gen, group, saved: dict):
     if gen is not None:
         gen.set_state(saved["state"])
     try:
-        yield
+        with spatial.region(part):
+            yield
     finally:
         if gen is not None:
             gen.set_state(after)
@@ -335,10 +356,10 @@ def checkpointed(fn, *args):
     recompute but not an explicit generator, so the dropout generator is put
     back to its state at the forward's entry here; batch norm skips its
     running-stat update in the recompute."""
-    gen, group, saved = _DROPOUT_GEN[0], _GLOBAL_GROUP[0], {}
+    gen, group, part, saved = _DROPOUT_GEN[0], _GLOBAL_GROUP[0], spatial.active(), {}
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (_forward_entry(gen, saved),
-                                          _recompute(gen, group, saved)))
+                                          _recompute(gen, group, part, saved)))
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +379,9 @@ class BatchNorm(nn.Module):
     ``checkpointed`` region. Inside ``global_batch`` the statistics are the
     global batch's: the per-channel sums of x and x^2 and the element count,
     all-reduced in fp32 (``nn.SyncBatchNorm`` would move the running
-    variance toward the unbiased one)."""
+    variance toward the unbiased one). Inside a spatial partition the sums
+    and counts are all-reduced over all the mesh's ranks (each holds its
+    columns of its slice; the counts differ where the shards do)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -375,7 +398,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         axes = [0] + list(range(2, x.ndim))
-        group = _GLOBAL_GROUP[0]
+        part = spatial.active()
+        group = part.mesh.group if part is not None else _GLOBAL_GROUP[0]
         if group is None:
             mean = x.mean(axes)
             var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
@@ -403,6 +427,7 @@ class InstanceNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
+        spatial.refuse("InstanceNorm")
         return F.instance_norm(x.float(), eps=self.eps).to(x.dtype)
 
 
@@ -430,6 +455,7 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(channels // 8, channels, eps=eps)
 
     def forward(self, x):
+        spatial.refuse("GroupNorm")
         return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
 
 
@@ -531,6 +557,9 @@ class Conv3dNormActReduced(nn.Module):
 
 def _match_hw(x, rem):
     if x.shape[-2:] != rem.shape[-2:]:
+        if spatial.active() is not None:
+            raise ValueError(f"shard shapes {tuple(x.shape[-2:])} and {tuple(rem.shape[-2:])} "
+                             "differ inside the spatial partition")
         x = resize2d(x, tuple(rem.shape[-2:]), "bilinear", False)
     return x
 
@@ -586,6 +615,7 @@ class ChannelAttentionEnhancement(nn.Module):
                                 Conv2d(channels // 16, channels, 1, bias=False, cdt=cdt))
 
     def forward(self, x):
+        spatial.refuse("ChannelAttentionEnhancement")
         avg = x.mean(dim=(2, 3), keepdim=True)
         mx = x.amax(dim=(2, 3), keepdim=True)
         return torch.sigmoid(self.fc(avg) + self.fc(mx))
@@ -673,8 +703,8 @@ class TransformerEncoderLayer(nn.Module):
         self.norm1 = LayerNorm(embed_dim)
         self.norm2 = LayerNorm(embed_dim)
 
-    def forward(self, x):
-        drop = lambda t: dropout(t, self.rate, self.training)  # noqa: E731
+    def forward(self, x, grid: tuple[int, int, int] | None = None):
+        drop = lambda t: dropout(t, self.rate, self.training, grid)  # noqa: E731
         x = self.norm1(x + drop(self.self_attn(x, x, x)))
         return self.norm2(x + drop(self.linear2(drop(gelu(self.linear1(x))))))
 
@@ -697,5 +727,5 @@ class CostVolumeDisparityAttention(nn.Module):
         pe = torch.from_numpy(sinusoidal_position_embedding(self.max_len, C))
         x = x + pe[:, :D].to(device=x.device, dtype=x.dtype)
         for layer in self.sa:
-            x = layer(x)
+            x = layer(x, (B, H, W))
         return x.reshape(B, H, W, D, C).permute(0, 4, 3, 1, 2)

@@ -19,6 +19,7 @@ from foundationstereo_torch.models.layers import (
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize2d
 from foundationstereo_torch.ops.upsample import avg_pool2x
+from foundationstereo_torch.parallel import spatial
 
 
 def interp(x, dest):
@@ -80,7 +81,8 @@ class RaftConvGRU(nn.Module):
         if k4:
             zr = kernels.conv3x3(k4_input(hx, self.convz.cdt), w, b, packed)
         else:
-            zr = F.conv2d(hx.to(self.convz.cdt), w, b, padding=self.convz.padding)
+            c = self.convz
+            zr = spatial.conv(F.conv2d, hx.to(c.cdt), w, b, c.stride, c.padding, c.dilation, 1)
         d = self.convz.out_channels
         z, r = torch.sigmoid(zr[:, :d]), torch.sigmoid(zr[:, d:])
         q = torch.tanh(self.convq(torch.cat([r * h, x], dim=1)))

@@ -8,6 +8,10 @@ are the trailing ones ((..., H, W) or (..., D, H, W)).
 
 2-byte float inputs interpolate at their own width (the matrix is cast
 down) and fp32 inputs in fp32, as in the JAX package.
+
+Inside a spatial partition (``parallel/spatial.py``) the W axis is each
+rank's columns: a rank computes its rows of the global matrix over its
+columns and the halo those rows read.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import functools
 
 import numpy as np
 import torch
+
+from foundationstereo_torch.parallel import spatial
 
 
 @functools.lru_cache(maxsize=256)
@@ -81,6 +87,19 @@ def _apply_axis(x: torch.Tensor, m: np.ndarray, axis: int) -> torch.Tensor:
     return y.movedim(-1, axis).to(x.dtype)
 
 
+def _resize_w(x: torch.Tensor, w_out: int, method: str, align_corners: bool) -> torch.Tensor:
+    """Resize the last (W) axis to ``w_out`` columns; inside a spatial
+    partition, ``w_out`` is this rank's share of the output columns."""
+    part = spatial.active()
+    if part is None:
+        return _apply_axis(x, interp_matrix_np(x.shape[-1], w_out, method, align_corners),
+                           x.ndim - 1)
+    block, left, right = spatial.resize_block(
+        interp_matrix_np, part.global_width(x.shape[-1]), part.global_width(w_out), method,
+        align_corners, tuple(part.bounds), part.index)
+    return _apply_axis(part.halo(x, left, right), block, x.ndim - 1)
+
+
 def resize2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bilinear",
              align_corners: bool = False) -> torch.Tensor:
     """``F.interpolate(x, size=out_hw, mode=method, align_corners=...)`` on the
@@ -90,7 +109,7 @@ def resize2d(x: torch.Tensor, out_hw: tuple[int, int], method: str = "bilinear",
     if h_in != out_hw[0]:
         x = _apply_axis(x, interp_matrix_np(h_in, out_hw[0], method, align_corners), x.ndim - 2)
     if w_in != out_hw[1]:
-        x = _apply_axis(x, interp_matrix_np(w_in, out_hw[1], method, align_corners), x.ndim - 1)
+        x = _resize_w(x, out_hw[1], method, align_corners)
     return x
 
 
@@ -98,6 +117,7 @@ def resize2d_via(x: torch.Tensor, mid_hw: tuple[int, int], out_hw: tuple[int, in
                  method: str = "bilinear", align_corners: bool = False) -> torch.Tensor:
     """``resize2d(resize2d(x, mid_hw), out_hw)`` as one composed matrix per
     axis (multiplied in float64), so the intermediate never exists."""
+    spatial.refuse("resize2d_via")
     method = _METHOD_ALIASES[method]
     for axis, (n_in, n_mid, n_out) in ((x.ndim - 2, (x.shape[-2], mid_hw[0], out_hw[0])),
                                        (x.ndim - 1, (x.shape[-1], mid_hw[1], out_hw[1]))):
@@ -113,8 +133,10 @@ def resize_dhw(x: torch.Tensor, out_dhw: tuple[int, int, int], method: str = "tr
                align_corners: bool = False) -> torch.Tensor:
     """Resize the three trailing (D, H, W) axes (torch trilinear)."""
     method = _METHOD_ALIASES[method]
-    for i, n_out in enumerate(out_dhw):
+    for i, n_out in enumerate(out_dhw[:2]):
         axis = x.ndim - 3 + i
         if x.shape[axis] != n_out:
             x = _apply_axis(x, interp_matrix_np(x.shape[axis], n_out, method, align_corners), axis)
+    if x.shape[-1] != out_dhw[2]:
+        x = _resize_w(x, out_dhw[2], method, align_corners)
     return x

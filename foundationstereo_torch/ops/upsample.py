@@ -3,13 +3,15 @@
 The port of the JAX package's ``ops/upsample.py``. The JAX package's phased
 convex upsample is a TPU layout workaround; the port computes the same math
 once, from the interleaved (full-resolution) weights of a standard
-``ConvTranspose2d``.
+``ConvTranspose2d``. Inside a spatial partition (``parallel/spatial.py``)
+the 3x3 neighbourhoods of both reach one column across the shard borders.
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
+
+from foundationstereo_torch.parallel import spatial
 
 
 def disparity_regression(prob: torch.Tensor, maxdisp: int) -> torch.Tensor:
@@ -26,11 +28,11 @@ def context_upsample(disp_low: torch.Tensor, weights: torch.Tensor) -> torch.Ten
     (row-major over (dy, dx), ``F.unfold`` order). Returns (B, 4h, 4w).
     """
     b, h, w = disp_low.shape
-    taps = F.unfold(disp_low[:, None], 3, padding=1).reshape(b, 9, h, w)
+    taps = spatial.unfold3(disp_low[:, None]).reshape(b, 9, h, w)
     taps = taps.repeat_interleave(4, dim=2).repeat_interleave(4, dim=3)
     return torch.sum(taps * weights, dim=1)
 
 
 def avg_pool2x(x: torch.Tensor) -> torch.Tensor:
     """``F.avg_pool2d(x, 3, stride=2, padding=1)`` with count_include_pad."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=True)
+    return spatial.avg_pool2x(x)

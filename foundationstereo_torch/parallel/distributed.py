@@ -75,11 +75,13 @@ def barrier(device) -> None:
         flag.item()
 
 
-def local_slice(global_batch: dict) -> dict:
+def local_slice(global_batch: dict, mesh=None) -> dict:
     """This rank's part of a global batch that every rank holds whole: the
-    rows [rank * b, (rank + 1) * b) of each batched entry, b = B / world
-    (``rng`` is not batched and stays whole)."""
-    n, r = world_size(), rank()
+    rows [i * b, (i + 1) * b) of each batched entry, b = B / n, with n ranks
+    and this one the i-th (``rng`` is not batched and stays whole). Under a
+    ``RankMesh`` n and i are its ``data`` axis's: the ranks that share a
+    data index take the same rows."""
+    n, r = (world_size(), rank()) if mesh is None else (mesh.shape["data"], mesh.data_index)
     out = {}
     for k, v in global_batch.items():
         if k == "rng":
@@ -92,12 +94,51 @@ def local_slice(global_batch: dict) -> dict:
     return out
 
 
-def host_local_batch_to_global(batch: dict, device) -> dict:
+# The entries a shared batch has (``train.cli.host_batch``'s) and the
+# element types they may have, by their code in ``share_batch``'s header.
+_BATCH_KEYS = ("left", "right", "disparity", "mask", "label_idx")
+_DTYPES = (torch.float32, torch.bool, torch.int64)
+
+
+def share_batch(batch: dict | None, mesh, device) -> dict:
+    """The batch of the first rank of this rank's ``spatial`` group (the
+    others pass None) on every rank of the group, on ``device``: one
+    broadcast of the entries' element types and shapes (at most 4 axes),
+    then one per entry of ``_BATCH_KEYS`` (``rng`` is not shared: the caller
+    sets it alike on every rank)."""
+    group, src = mesh.spatial_group, mesh.data_index * mesh.shape["spatial"]
+    lead = mesh.spatial_index == 0
+    header = torch.zeros(6 * len(_BATCH_KEYS), dtype=torch.int64, device=device)
+    out = {}
+    if lead:
+        if set(batch) - {"rng"} != set(_BATCH_KEYS):
+            raise ValueError(f"a shared batch has the entries {_BATCH_KEYS}, not {sorted(batch)}")
+        out = place_batch({k: batch[k] for k in _BATCH_KEYS}, device)
+        header.copy_(torch.tensor([x for k in _BATCH_KEYS for x in (
+            [_DTYPES.index(out[k].dtype), out[k].ndim, *out[k].shape] + [0] * (4 - out[k].ndim))]))
+    dist.broadcast(header, src=src, group=group)
+    spec = header.tolist()
+    for i, k in enumerate(_BATCH_KEYS):
+        code, ndim, *shape = spec[6 * i:6 * i + 6]
+        dtype = _DTYPES[code]
+        t = out[k] if lead else torch.empty(shape[:ndim], dtype=dtype, device=device)
+        wire = t.to(torch.uint8) if dtype == torch.bool else t
+        dist.broadcast(wire, src=src, group=group)
+        out[k] = wire.to(torch.bool) if dtype == torch.bool else wire
+    return out
+
+
+def host_local_batch_to_global(batch: dict | None, device, mesh=None) -> dict:
     """This rank's local batch as its part of the global batch, placed on
-    ``device`` (``sharding.place_batch``). Every rank must hold the same
+    ``device`` (``sharding.place_batch``); under a ``RankMesh`` whose
+    ``spatial`` axis is > 1 the group's first rank's batch, shared
+    (``share_batch``; the others pass None). Every rank must hold the same
     number of samples (the global batch statistics and dropout masks cut the
     global batch into equal slices): checked with one all-reduce."""
-    out = place_batch(batch, device)
+    if mesh is not None and mesh.shape["spatial"] > 1:
+        out = share_batch(batch, mesh, device)
+    else:
+        out = place_batch(batch, device)
     n = world_size()
     if n > 1:
         size = next(v.shape[0] for k, v in out.items() if k != "rng")
@@ -133,15 +174,16 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     return _AllReduceSum.apply(x, group)
 
 
-def all_reduce_mean(tensors: list[torch.Tensor]) -> None:
-    """Each tensor replaced, in place, by its mean over the ranks: one
-    all-reduce of one flat fp32 buffer."""
+def all_reduce_mean(tensors: list[torch.Tensor], divisor: int | None = None) -> None:
+    """Each tensor replaced, in place, by its sum over the ranks divided by
+    ``divisor`` (the number of ranks when None: the mean): one all-reduce of
+    one flat fp32 buffer."""
     n = world_size()
     if n == 1 or not tensors:
         return
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     dist.all_reduce(flat)
-    flat.div_(n)
+    flat.div_(n if divisor is None else divisor)
     offset = 0
     with torch.no_grad():
         for t in tensors:

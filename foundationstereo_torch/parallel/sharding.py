@@ -23,11 +23,14 @@ rank's local batch to its card, the counterpart of placing the global batch
 on the ``data`` axis, and ``replicate`` broadcasts rank 0's parameters,
 buffers and EMA copies, the counterpart of the replicated state.
 
-Not ported yet: the JAX module's ``shard_batch`` and ``shard_spatial``
-(hints with which GSPMD partitions the filter stack and the GRU convs along
-width, with halo exchanges). Those convs run on the home device until a
-later slice partitions them, and training has no ``spatial`` axis: the
-batch must split evenly over the ranks.
+The JAX module's ``shard_batch`` and ``shard_spatial`` (hints with which
+GSPMD partitions the filter stack and the GRU convs along width, with halo
+exchanges) are one process per rank too: ``parallel/spatial.py`` under a
+``RankMesh`` (``parallel/mesh.py``). The batch goes on ``data``
+(``distributed.local_slice``), and from the cost volume on each rank of
+``spatial`` holds its columns, at the points where the JAX forward places
+``shard_spatial`` (``models/foundation_stereo.py``). The device ``Mesh``
+and ``ShardPlan`` here stay the single-process path of the sharded kernels.
 """
 
 from __future__ import annotations

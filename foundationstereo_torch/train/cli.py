@@ -15,21 +15,27 @@ Checkpoints (``train/checkpoints.py``) go to ``<workspace>/checkpoints`` every
 ``--save_every`` steps and at the end; a run resumes from ``latest`` by
 default. A step's dropout key comes from ``(--seed, step)``.
 
-Data-parallel training, as the JAX CLI's ``--n_devices``: 0 (the default)
-trains on every visible card (one process with ``--device cpu``), N > 1 on N
-ranks, one process each (``torch.distributed``; rank r on card r over
-``nccl``, or on the CPU over ``gloo``). Where a launcher set ``RANK`` and
-``WORLD_SIZE`` (several hosts) the process joins them; otherwise the CLI
-spawns N local ranks on a free local port. Ranks that share a card need
-``--dist_backend gloo`` (NCCL refuses two ranks on one device: the CLI
-raises rather than switch). ``--batch_size`` is the global batch: each
-rank's pipeline draws ``batch_size / N`` samples, sampling from ``--seed`` +
-rank, and N must divide the batch (training has no ``spatial`` axis yet).
+Several devices, as the JAX CLI's ``--n_devices``: 0 (the default) trains
+on every visible card (one process with ``--device cpu``), N > 1 on N ranks,
+one process each (``torch.distributed``; rank r on card r over ``nccl``, or
+on the CPU over ``gloo``), laid out as the JAX CLI's ``make_mesh(N)`` lays
+out its devices: ``spatial`` takes the largest power of two <= 4 that
+divides N and ``data`` the rest (``parallel.mesh.factor``; so
+``--n_devices 2`` trains each sample across two ranks, split along image
+width, and ``--n_devices 8`` is data 2 x spatial 4). Where a launcher set
+``RANK`` and ``WORLD_SIZE`` (several hosts) the process joins them;
+otherwise the CLI spawns N local ranks on a free local port. Ranks that
+share a card need ``--dist_backend gloo`` (NCCL refuses two ranks on one
+device: the CLI raises rather than switch). ``--batch_size`` is the global
+batch and ``data`` must divide it: the first rank of each data index draws
+``batch_size / data`` samples from its pipeline, sampling from ``--seed`` +
+its data index, and hands them to the other ranks of its ``spatial`` group.
 The step is the one-process step on the global batch
 (``train/trainer.py``). Rank 0 alone writes ``metrics.jsonl`` (the global
-batch's means), the visualisations and the checkpoints; every rank restores
-the same one, and every ``--log_every`` steps the ranks' parameters, batch
-stats and EMA are checked bit for bit against rank 0's.
+batch's means), the visualisations (from one unpartitioned forward) and the
+checkpoints; every rank restores the same one, and every ``--log_every``
+steps the ranks' parameters, batch stats and EMA are checked bit for bit
+against rank 0's.
 """
 
 from __future__ import annotations
@@ -57,8 +63,9 @@ def parse_args(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ema", type=int, default=1)
     ap.add_argument("--n_devices", type=int, default=0,
-                    help="data-parallel ranks: 0 = every visible card (1 with --device cpu); "
-                         "--batch_size is the global batch, split evenly over them")
+                    help="ranks: 0 = every visible card (1 with --device cpu), as a data x spatial "
+                         "mesh (spatial: the largest power of two <= 4 dividing N); --batch_size "
+                         "is the global batch, split evenly over data")
     ap.add_argument("--dist_backend", default=None,
                     help="nccl (the default on cards: one card per rank) or gloo (the CPU's; "
                          "ranks that share a card)")
@@ -121,14 +128,16 @@ def step_rng(seed: int, step: int, micro: int = 0) -> np.ndarray:
     return np.random.default_rng([seed, step, micro]).integers(0, 2 ** 31, size=2).astype(np.uint32)
 
 
-def plan_ranks(args) -> tuple[int, str]:
-    """(ranks, backend) of the run: a launcher's ``WORLD_SIZE`` where it set
-    one, else ``--n_devices`` (0: every visible card, 1 on the CPU). Raises
-    where the plan cannot run: no card for ``--device cuda``, ``nccl`` on the
-    CPU or with more local ranks than cards, a batch the ranks do not split."""
+def plan_ranks(args) -> tuple[int, int, str]:
+    """(data, spatial, backend) of the run: a launcher's ``WORLD_SIZE`` where
+    it set one, else ``--n_devices`` (0: every visible card, 1 on the CPU),
+    factored as ``make_mesh`` factors it. Raises where the plan cannot run:
+    no card for ``--device cuda``, ``nccl`` on the CPU or with more local
+    ranks than cards, a batch that ``data`` does not split."""
     import torch
 
     from foundationstereo_torch.models.foundation_stereo import resolve_device
+    from foundationstereo_torch.parallel.mesh import factor
 
     device = resolve_device(args.device)
     cards = torch.cuda.device_count() if device.type == "cuda" else 0
@@ -147,12 +156,12 @@ def plan_ranks(args) -> tuple[int, str]:
         if local > cards:
             raise ValueError(f"{local} ranks on this host but {cards} visible card(s): NCCL refuses "
                              "two ranks on one device; pass --dist_backend gloo to share cards")
-    if args.batch_size % world:
-        raise ValueError(f"--batch_size {args.batch_size} does not split over {world} ranks: each "
-                         "rank takes an equal slice of the global batch, and the JAX mesh's "
-                         "spatial axis, which trains fewer samples than devices, is not ported "
-                         "yet (ROADMAP.md, Queue A item 2)")
-    return world, backend
+    data, spatial = factor(world)
+    if args.batch_size % data:
+        raise ValueError(f"--batch_size {args.batch_size} does not split over the {data} data "
+                         f"ranks of {world} = data {data} x spatial {spatial}: each data index "
+                         "takes an equal slice of the global batch")
+    return data, spatial, backend
 
 
 def _free_port() -> int:
@@ -164,7 +173,8 @@ def _free_port() -> int:
 def main(argv=None) -> dict:
     """Runs the training; returns the last logged metrics line."""
     args = parse_args(argv)
-    world, backend = plan_ranks(args)
+    data, spatial, backend = plan_ranks(args)
+    world = data * spatial
     if world > 1 and "RANK" not in os.environ:
         import torch.multiprocessing as mp
 
@@ -181,7 +191,7 @@ def train(rank: int, args, world: int, backend: str, url: str | None) -> dict:
     launcher's environment names the group)."""
     import torch
 
-    from foundationstereo_torch.parallel import distributed
+    from foundationstereo_torch.parallel import distributed, make_mesh, mesh_context
     from foundationstereo_torch.train.checkpoints import CheckpointManager
     from foundationstereo_torch.train.dataloader import StereoTrainDataLoaderPipeline
     from foundationstereo_torch.train.trainer import Trainer
@@ -200,9 +210,12 @@ def train(rank: int, args, world: int, backend: str, url: str | None) -> dict:
             device = torch.device("cuda", local % torch.cuda.device_count())
             torch.cuda.set_device(device)
         distributed.initialize(url, world, rank, backend)
-    set_seed(args.seed + rank)
-    print(f"device: {device}" + (f", rank {rank} of {world} ({backend})" if world > 1 else ""),
-          flush=True)
+    mesh = make_mesh() if world > 1 else None
+    data_index = 0 if mesh is None else mesh.data_index
+    draws = mesh is None or mesh.spatial_index == 0     # hands its batches to its spatial group
+    set_seed(args.seed + data_index)
+    print(f"device: {device}" + (f", rank {rank} of {world} ({backend}), {mesh}" if world > 1
+                                 else ""), flush=True)
 
     mlflow = None
     if args.mlflow and lead:
@@ -214,16 +227,23 @@ def train(rank: int, args, world: int, backend: str, url: str | None) -> dict:
         except Exception as e:  # noqa: BLE001 -- soft-fail like the reference
             print(f"mlflow disabled: {e}")
 
-    data_pipe = StereoTrainDataLoaderPipeline(config["data"], args.batch_size // world,
-                                              num_load_workers=4)
-    data_pipe.start()
+    data_pipe = None
+    if draws:
+        data_pipe = StereoTrainDataLoaderPipeline(
+            config["data"], args.batch_size // (1 if mesh is None else mesh.shape["data"]),
+            num_load_workers=4)
+        data_pipe.start()
+
+    def get():
+        return data_pipe.get() if draws else None
 
     def place(raw):
-        return distributed.host_local_batch_to_global(host_batch(raw, config["loss"]), device)
+        host = None if raw is None else host_batch(raw, config["loss"])
+        return distributed.host_local_batch_to_global(host, device, mesh)
 
     try:
         trainer = Trainer(config, seed=args.seed, enable_ema=bool(args.ema), device=device)
-        batch = place(data_pipe.get())
+        batch = place(get())
         state = trainer.init_state()
         ckpt = CheckpointManager(workspace / "checkpoints", max_to_keep=5)
         initial_step = 0
@@ -247,18 +267,19 @@ def train(rank: int, args, world: int, backend: str, url: str | None) -> dict:
                 prof = torch.profiler.profile(record_shapes=False)
                 prof.__enter__()
             t0 = time.perf_counter()
-            micros = [batch] + [place(data_pipe.get())
+            micros = [batch] + [place(get())
                                 for _ in range(args.gradient_accumulation_steps - 1)]
             for i, micro in enumerate(micros):
                 micro["rng"] = step_rng(args.seed, step, i)
-            if len(micros) > 1:
-                state, metrics = trainer.train_step_accum(state, micros)
-            else:
-                state, metrics = trainer.train_step(state, batch)
+            with mesh_context(mesh):
+                if len(micros) > 1:
+                    state, metrics = trainer.train_step_accum(state, micros)
+                else:
+                    state, metrics = trainer.train_step(state, batch)
             t_dispatch = time.perf_counter() - t0
             last_batch = batch
             t0 = time.perf_counter()
-            raw = data_pipe.get()
+            raw = get()
             t_get = time.perf_counter() - t0
             t0 = time.perf_counter()
             batch = place(raw)
@@ -322,7 +343,8 @@ def train(rank: int, args, world: int, backend: str, url: str | None) -> dict:
         if metrics_log:
             metrics_log.close()
     finally:
-        data_pipe.stop()
+        if data_pipe is not None:
+            data_pipe.stop()
         if world > 1:
             torch.distributed.destroy_process_group()
     print("training done", flush=True)

@@ -24,10 +24,22 @@ buffer (once per optimizer step, after any accumulation), as are the loss
 and the metrics. So the norm, the skip, clipping, AdamW and the EMA see the
 global gradient and decide alike on every rank, and the ranks' parameters
 stay equal bit for bit.
+
+Under a ``RankMesh`` (``parallel.mesh_context``; without one, the ranks are
+all on ``data``) the batch is split over ``data`` only: the ranks that share
+a data index hold the same samples, and where ``spatial`` > 1 each computes
+its columns of the image from the cost volume on (``parallel/spatial.py``).
+The forward gathers its outputs along W, so the loss is computed whole on
+every rank, and the gather's backward hands each rank its columns'
+gradient. Batch norm outside the partition reduces over ``data`` (every
+spatial rank sees the whole tensor), inside it over all the ranks; the
+gradients are summed over ``spatial`` and averaged over ``data`` (one
+all-reduce over all the ranks, divided by the data axis's size).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -38,6 +50,7 @@ from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo, resolve_device
 from foundationstereo_torch.models.layers import dropout_generator, global_batch
 from foundationstereo_torch.parallel import distributed
+from foundationstereo_torch.parallel.mesh import RankMesh, current_mesh
 from foundationstereo_torch.parallel.sharding import replicate
 from foundationstereo_torch.train import losses as L
 from foundationstereo_torch.train.optim import (
@@ -105,6 +118,15 @@ class Trainer:
         return TrainState(step=0, model=model, optimizer=opt,
                           ema=ema_init(model) if self.enable_ema else None)
 
+    @staticmethod
+    def rank_mesh() -> RankMesh | None:
+        """The ranks' mesh of a step: the current ``RankMesh``, else all the
+        ranks on ``data`` (None without a process group)."""
+        mesh = current_mesh()
+        if isinstance(mesh, RankMesh):
+            return mesh
+        return RankMesh((distributed.world_size(), 1)) if distributed.world_size() > 1 else None
+
     # -- loss ---------------------------------------------------------------
 
     def composite_loss(self, init_disp, preds, gt, mask, label_idx):
@@ -139,7 +161,10 @@ class Trainer:
         gen = None
         if "rng" in batch:
             gen = torch.Generator(device=self.device).manual_seed(dropout_seed(batch["rng"]))
-        with dropout_generator(gen), global_batch():
+        mesh = self.rank_mesh()
+        over_data = (global_batch(mesh.data_group) if mesh is not None and mesh.shape["data"] > 1
+                     else contextlib.nullcontext())
+        with dropout_generator(gen), over_data:
             init_disp, preds = model(batch["left"], batch["right"], iters=self.iters,
                                      test_mode=False, train=self.train_flag)
             per_sample, metrics = self.composite_loss(init_disp, preds, batch["disparity"],
@@ -151,12 +176,14 @@ class Trainer:
     # -- steps --------------------------------------------------------------
 
     def _average_over_ranks(self, state: TrainState, loss, metrics) -> tuple:
-        """The gradients (in place), the loss and the metrics as their means
-        over the ranks: two all-reduces (nothing without a process group)."""
-        if distributed.world_size() == 1:
+        """The gradients (in place) summed over ``spatial`` and averaged over
+        ``data``, the loss and the metrics averaged over the ranks: two
+        all-reduces (nothing without a process group)."""
+        mesh = self.rank_mesh()
+        if mesh is None:
             return loss, metrics
         distributed.all_reduce_mean([p.grad for p in state.model.parameters()
-                                     if p.grad is not None])
+                                     if p.grad is not None], divisor=mesh.shape["data"])
         keys = list(metrics)
         values = torch.stack([loss] + [metrics[k] for k in keys])
         distributed.all_reduce_mean([values])

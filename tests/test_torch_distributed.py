@@ -29,9 +29,11 @@ spawned processes against one process on the global batch.
   dropout mask gave 1.34 over all gradients, batch-norm statistics whose
   gradient is not all-reduced 0.37 (worst tensor 8.0), and statistics not
   all-reduced at all made the ranks' running stats differ.
-* The train CLI with ``--device cpu --n_devices 2``: 2 steps, then a resume
-  from ``latest``; rank 0 alone writes ``metrics.jsonl`` and the
-  checkpoints; plans that cannot run raise before any rank starts.
+* The train CLI with ``--device cpu --n_devices 2`` (laid out as the JAX
+  CLI's ``make_mesh(2)``: data 1 x spatial 2, each sample split along width):
+  2 steps, then a resume from ``latest``; rank 0 alone writes
+  ``metrics.jsonl`` and the checkpoints; plans that cannot run (a batch the
+  data axis does not split among them) raise before any rank starts.
 
 The one-process step is held against the JAX package's step in
 ``test_torch_train.py``; the JAX package defines the sharded step as the
@@ -352,17 +354,19 @@ def _plan(tmp_path, *extra):
 
 
 def test_plan_ranks(tmp_path, monkeypatch):
-    assert _plan(tmp_path) == (1, "gloo")                    # --n_devices 0 on the CPU: one
-    assert _plan(tmp_path, "--n_devices", "2") == (2, "gloo")
+    """(data, spatial, backend), factored as the JAX package's make_mesh."""
+    assert _plan(tmp_path) == (1, 1, "gloo")                 # --n_devices 0 on the CPU: one
+    assert _plan(tmp_path, "--n_devices", "2") == (1, 2, "gloo")
+    assert _plan(tmp_path, "--n_devices", "8") == (2, 4, "gloo")
     monkeypatch.setenv("RANK", "1")
     monkeypatch.setenv("WORLD_SIZE", "2")
-    assert _plan(tmp_path) == (2, "gloo")                    # a launcher's group
+    assert _plan(tmp_path) == (1, 2, "gloo")                 # a launcher's group
     with pytest.raises(ValueError, match="WORLD_SIZE is 2"):
         _plan(tmp_path, "--n_devices", "4")
 
 
 @pytest.mark.parametrize("extra, match", [
-    (("--n_devices", "4"), "does not split over 4 ranks.*Queue A item 2"),
+    (("--n_devices", "6"), "does not split over the 3 data ranks of 6 = data 3 x spatial 2"),
     (("--n_devices", "2", "--dist_backend", "nccl"), "nccl needs --device cuda"),
     (("--device", "cuda:0", "--n_devices", "2"), "NCCL refuses two ranks on one device"),
 ], ids=["batch", "nccl_on_cpu", "nccl_ranks_over_cards"])

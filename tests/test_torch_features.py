@@ -44,6 +44,24 @@ def test_deconv_weight_inverse_against_conv_transpose(rng, ndim, k, s, p):
     assert_close(got, want)
 
 
+@pytest.mark.parametrize("vit_size", ["vitb", "vitl"])
+def test_feature_at_the_larger_vits(rng, vit_size):
+    """``Feature`` (EdgeNeXt + DINOv2 + DPT) at vitb and vitl, as the test
+    below holds vits."""
+    x = rng.standard_normal((1, 64, 96, 3)).astype(np.float32)
+    jm = jex.Feature(JCFG.replace(vit_size=vit_size))
+    v = random_variables(jm, jnp.asarray(x))
+    jouts, jvit = jm.apply(v, jnp.asarray(x))
+    cfg = CFG.replace(vit_size=vit_size)
+    tm = tex.Feature(cfg).eval()
+    load_jax_variables(tm, v, cfg, "feature", "feature")
+    with torch.no_grad():
+        touts, tvit = tm(t(x))
+    assert_close(tvit, jvit)
+    for a, bb in zip(touts, jouts):
+        assert_close(a, bb)
+
+
 def test_feature_stem2_and_context(rng):
     b, h, w = 2, 64, 96
     x = rng.standard_normal((b, h, w, 3)).astype(np.float32)
