@@ -122,14 +122,19 @@ Phases:
               in 2 spawned ranks that share card 0 over ``gloo`` (and in 2 and 4 ranks on distinct
               cards over ``nccl`` where there are as many) under a data 1 x
               spatial n ``RankMesh``: every rank's launches per pair must be
-              1 K5 build, 32 K5 lookups and 24 K3 (the replicated ViT) and no
-              K1, K2, K3s or K4; every rank's gathered disparity the same, and
-              within mean 0.05 px and p99 0.5 px of the one process's (in
-              fp32 within max 1e-2 px). Each
-              rank's seconds per pair, halo exchanges and gathers per pair and
-              their ms (CUDA events around each collective), and peak GiB
-              beside one process's; then K5's build and lookup on each gloo
-              rank's columns at the main path's shapes against their twins,
+              1 K5 build, 32 K5 lookups and 24 K3s on its 16/n heads of the
+              ViT's attention (each followed by a heads gather over the
+              group) and no K1, K2, K3 or K4; every rank's gathered disparity
+              the same, and within mean 0.05 px and p99 0.5 px of the one
+              process's (in fp32 within max 1e-2 px). The first pair once
+              more with ``vit_attention="flash"`` (K3 on all 16 heads on
+              every rank, no heads gather): the ViT's output bit for bit the
+              same, the disparity within the bf16 limits. Each rank's
+              seconds per pair, halo exchanges and gathers per pair and
+              their ms, the heads gathers per pair and their ms (CUDA events
+              around each collective), and peak GiB beside one process's;
+              then K5's build and lookup on each gloo rank's columns and K3s
+              on its heads at the main path's shapes against their twins,
               the ranks in turns (the kernels line's ``spatial`` rows). Then one train step of
               stereo_v1 at batch 1 on spatial 2 against one process (the dp
               phase's bounds and checks), and 2 steps of the train CLI with
@@ -147,7 +152,7 @@ launches (24 and 565).
 It then prints the ``{"kernels": [...]}`` line (``launches`` counted over the
 phase a row's kernel runs in: the demo phase for K1-K4, the mesh phase's
 sharded requests for K5 and K3s, the spatial phase's gloo rank 0 over its
-pairs for its K5 rows; ``offline_launches`` over the offline phase;
+pairs for its K5 and K3s rows; ``offline_launches`` over the offline phase;
 ``dp_launches_per_rank`` on the training-shape K3 row: each rank's launches
 in the dp phase's step; ``spatial_launches_per_rank_per_pair``: each spatial
 run's launches of the row's kernel per pair on every rank) and, last, the ``{"ok": true, "device":
@@ -208,8 +213,9 @@ SPATIAL = dict(pairs=2, nccl_ranks=(2, 4), cli_steps=2)
 # shape and iteration count.
 OFFLINE = dict(eval_hw=(375, 1242), eval_frames=2, fixture_max_disp=192,
                export_hw=(448, 672), export_iters=22)
-# The kernels every rank of the spatial path runs.
-SPATIAL_KERNELS = ("cost_volume_parts_haloed", "disparity_lookup_shard", "flash_attention")
+# The kernels every rank of the spatial path runs (K3s: the rank's heads of
+# the ViT attention, gathered over the ranks).
+SPATIAL_KERNELS = ("cost_volume_parts_haloed", "disparity_lookup_shard", "flash_attention_heads")
 # The kernels the offline path runs (the served configuration: no K4).
 OFFLINE_KERNELS = ("cost_volume_parts", "disparity_lookup", "flash_attention")
 # K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
@@ -1206,49 +1212,66 @@ def check_lookup_sharded(dev, gen, mesh) -> dict:
                       sharded_call_ms=sharded_ms, pyramid_cut_ms=cut_ms)
 
 
+def attention_shard(qkv, h0: int, hl: int, j: int, tag: str) -> tuple[dict, object]:
+    """K3s on the heads [h0, h0 + hl) of the bf16 ``qkv`` (B, N, 3, H, 64)
+    against the fp32 dense twin (K3's tolerance), timed beside K3 on all H
+    heads, the twin and SDPA on the slice, with its bound: the shard's
+    numbers, and the fp32 reference."""
+    import torch
+    import torch.nn.functional as F
+
+    from foundationstereo_torch.ops import kernels
+
+    B, N, Hh, hd = qkv.shape[0], qkv.shape[1], qkv.shape[3], qkv.shape[4]
+    scale = 1.0 / math.sqrt(hd)
+    sms = torch.cuda.get_device_properties(qkv.device).multi_processor_count
+    out = kernels.flash_attention_heads(qkv, scale, h0, hl)
+    grid = attention_launched()
+    part = qkv[:, :, :, h0:h0 + hl]
+    ref = kernels.flash_attention_plain(part.float(), scale)
+    torch.cuda.synchronize()
+    err, tol_max, mean_err, tol_mean, _, _, ok = attention_errors(out, ref)
+    ms = cuda_ms(lambda: kernels.flash_attention_heads(qkv, scale, h0, hl), 10)
+    whole_ms = cuda_ms(lambda: kernels.flash_attention(qkv, scale), 10)
+    plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(part, scale), 3)
+    qs, ks, vs = (t.transpose(1, 2).contiguous() for t in part.unbind(2))
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
+    del qs, ks, vs
+    b_ms, b_by, e_ms = attention_bound((part.numel() + out.numel()) * 2, 4.0 * B * hl * N * N * hd,
+                                       B * hl * N * N, sms, sm_clock_mhz())
+    log(f"[{tag}] flash_attention_heads shard {j}: heads [{h0}, {h0 + hl}) of {Hh}, max abs err "
+        f"{err:.3g} (tolerance {tol_max:.3g}), mean abs err {mean_err:.3g} (tolerance "
+        f"{tol_mean:.3g}) vs fp32 dense -> {ok}; {ms:.4g} ms, K3 on all {Hh} heads {whole_ms:.4g} "
+        f"ms, plain {plain_ms:.4g} ms, SDPA on the slice {library_ms:.4g} ms, bound {b_ms:.4g} ms "
+        f"({b_by}), exp {e_ms:.4g} ms; grid {grid['blocks']} blocks ({grid['tile']}), "
+        f"{grid['blocks'] / sms:.2f} waves")
+    check(ok, f"flash_attention_heads shard {j} disagrees with the fp32 dense reference")
+    check(grid["blocks"] == kernels.flash_attention_blocks(N, B * hl),
+          f"flash_attention_heads shard {j}: {grid['blocks']} blocks launched")
+    return dict(shard=j, heads=[h0, h0 + hl], max_abs_err=err, mean_abs_err=mean_err, ms=ms,
+                whole_ms=whole_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
+                bound_by=b_by, grid=grid), ref
+
+
 def check_attention_sharded(dev, gen, mesh) -> dict:
     """K3s for each head shard against the fp32 dense twin (K3's tolerance),
     and the stitched output against K3's; the same for the fp32 variant
     (tolerance 1e-5) on the same values in fp32."""
     import torch
-    import torch.nn.functional as F
 
     from foundationstereo_torch.ops import kernels, sharded
 
     B, N, Hh, hd = 2, VIT_TOKENS, 16, 64
     hl, scale = Hh // MESH_SHARDS, 1.0 / math.sqrt(hd)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    clock = sm_clock_mhz()
     qkv = torch.randn(B, N, 3, Hh, hd, device=dev, generator=gen).bfloat16()
     qkv32 = qkv.float()
     shards = []
     for j in range(MESH_SHARDS):
-        h0 = j * hl
-        out = kernels.flash_attention_heads(qkv, scale, h0, hl)
-        grid = attention_launched()
-        part = qkv[:, :, :, h0:h0 + hl]
-        ref = kernels.flash_attention_plain(part.float(), scale)
-        torch.cuda.synchronize()
-        err, tol_max, mean_err, tol_mean, _, _, ok = attention_errors(out, ref)
-        fp32 = check_attention_shard_fp32(qkv32, scale, h0, hl, ref, sms)
+        shard, ref = attention_shard(qkv, j * hl, hl, j, "mesh")
+        shard.update(check_attention_shard_fp32(qkv32, scale, j * hl, hl, ref, sms))
+        shards.append(shard)
         del ref
-        ms = cuda_ms(lambda: kernels.flash_attention_heads(qkv, scale, h0, hl), 10)
-        plain_ms = cuda_ms(lambda: kernels.flash_attention_plain(part, scale), 3)
-        qs, ks, vs = (t.transpose(1, 2).contiguous() for t in part.unbind(2))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale), 10)
-        del qs, ks, vs
-        b_ms, b_by, e_ms = attention_bound((part.numel() + out.numel()) * 2, 4.0 * B * hl * N * N * hd,
-                                           B * hl * N * N, sms, clock)
-        log(f"[mesh] flash_attention_heads shard {j}: heads [{h0}, {h0 + hl}), max abs err {err:.3g} "
-            f"(tolerance {tol_max:.3g}), mean abs err {mean_err:.3g} (tolerance {tol_mean:.3g}) vs "
-            f"fp32 dense -> {ok}; {ms:.4g} ms, plain {plain_ms:.4g} ms, SDPA on the slice "
-            f"{library_ms:.4g} ms, bound {b_ms:.4g} ms ({b_by}), exp {e_ms:.4g} ms; grid "
-            f"{grid['blocks']} blocks ({grid['tile']}), {grid['blocks'] / sms:.2f} waves")
-        check(ok, f"flash_attention_heads shard {j} disagrees with the fp32 dense reference")
-        shards.append(dict(shard=j, heads=[h0, h0 + hl], max_abs_err=err, mean_abs_err=mean_err,
-                           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=b_ms,
-                           bound_by=b_by, grid=grid, **fp32))
-        del out
     got = sharded.flash_attention_sharded(qkv, scale, mesh)
     equal = bool(torch.equal(got, kernels.flash_attention(qkv, scale)))
     sharded_ms = cuda_ms(lambda: sharded.flash_attention_sharded(qkv, scale, mesh), 10)
@@ -1851,7 +1874,8 @@ def dp_step(dev, config, batch_path, timed_steps: int, k3: bool = True,
     part of the global batch at ``batch_path`` (all of it without a process
     group; in one, over a ``RankMesh`` of ``mesh_shape``: its data index's
     rows, and its columns where ``spatial`` > 1; the ViT's attention through
-    K3, or its twin with ``k3`` False),
+    K3, K3s on the rank's heads where ``spatial`` > 1, or its twin with
+    ``k3`` False),
     then ``timed_steps`` more timed on the host's clock around a
     synchronize; and, in a group, the gradient all-reduce alone on a buffer
     of the trainable gradients' size, timed with CUDA events. Returns the
@@ -1994,8 +2018,9 @@ def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
              tag: str = "dp") -> list[int]:
     """``DP["ranks"]`` spawned ranks over ``backend`` take the step over a
     ``RankMesh`` of ``mesh_shape``; every rank's checksums equal rank 0's,
-    each rank launched K3 ``depth`` times and no other kernel, and rank 0's
-    step is held to the one-process step. Returns each rank's K3 launches."""
+    each rank launched the ViT's attention ``depth`` times (K3, or K3s on
+    its heads where ``spatial`` > 1) and no other kernel, and rank 0's step
+    is held to the one-process step. Returns each rank's launches of it."""
     import socket
 
     import torch
@@ -2012,11 +2037,12 @@ def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
             for r in range(DP["ranks"])]
     for r in range(DP["ranks"]):
         (tmp / f"{backend}_rank{r}.pt").unlink()
+    name = "flash_attention_heads" if mesh_shape[1] > 1 else "flash_attention"
     for r, out in enumerate(outs):
         want_launches = dict.fromkeys(out["launches"], 0)
-        want_launches["flash_attention"] = depth
+        want_launches[name] = depth
         check(out["launches"] == want_launches,
-              f"[{tag}] {backend} rank {r} launched {out['launches']}, expected {depth} K3")
+              f"[{tag}] {backend} rank {r} launched {out['launches']}, expected {depth} {name}")
         check(bool((out["checksums"] == outs[0]["checksums"]).all()),
               f"[{tag}] {backend}: rank {r}'s parameters differ from rank 0's")
     cards = "one card, shared" if backend == "gloo" else f"{DP['ranks']} cards"
@@ -2032,7 +2058,7 @@ def dp_ranks(backend: str, config, batch_path, tmp, want: dict, depth: int,
             f"gradients, {ring:.0f} bytes sent per rank by a ring), peak {out['peak_gib']:.2f} GiB")
     log(f"[{tag}] {label}: parameters, stats and EMA bit for bit across the ranks; spawn to join "
         f"{wall:.1f} s")
-    return [o["launches"]["flash_attention"] for o in outs]
+    return [o["launches"][name] for o in outs]
 
 
 def dp_phase(dev) -> list[int]:
@@ -2347,17 +2373,55 @@ def offline_phase(dev, profile: bool = False) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _pair_with(model, mesh, vit_attention: str) -> dict:
+    """The first pair through ``run_pair`` under ``mesh`` with every ViT
+    attention set to ``vit_attention``: the ViT's output (``feature``'s
+    ``vit_feat``, on the card), the disparity (on the host), the launches,
+    the seconds (host clock around a synchronize) and the heads gathers'
+    count and ms."""
+    import torch
+
+    from foundationstereo_torch.inference.demo import run_pair
+    from foundationstereo_torch.models.dinov2 import Attention
+    from foundationstereo_torch.ops import kernels
+    from foundationstereo_torch.parallel import distributed, mesh_context, spatial
+
+    dev = next(model.parameters()).device
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.attention = vit_attention
+    vit = []
+    hook = model.feature.register_forward_hook(lambda mod, args, out: vit.append(out[1].clone()))
+    left, right = make_pair(MAIN["height"], MAIN["width"], 100)
+    distributed.barrier(dev)
+    kernels.reset_launches()
+    spatial.reset_exchanges()
+    try:
+        with spatial.timed() as timer, mesh_context(mesh):
+            t0 = time.perf_counter()
+            disp = run_pair(model, left, right, iters=MAIN["iters"])
+            torch.cuda.synchronize(dev)
+            secs = time.perf_counter() - t0
+    finally:
+        hook.remove()
+    return dict(vit=vit[0], disp=disp.float().cpu(), launches=dict(kernels.LAUNCHES), secs=secs,
+                heads=spatial.EXCHANGES["heads"], heads_ms=spatial.exchange_ms(timer, "heads"))
+
+
 def _spatial_rank(rank: int, world: int, url: str, backend: str, pairs: int, out_dir) -> None:
     """A spawned rank of the spatial phase, on card ``rank`` (``nccl``) or
     card 0 (``gloo``: the ranks share it): the served configuration under a
     data 1 x spatial ``world`` mesh answers ``pairs`` pairs through
-    ``run_pair``, each with the launches and the partition's collectives
-    (count and ms) counted from 0 around it; then K5's build and lookup on
-    this rank's columns at the main path's shapes against their twins.
-    Writes its numbers (rank 0 also the disparities)."""
+    ``run_pair``, each with the launches and the collectives (the
+    partition's and the ViT attention's heads gathers: count, bytes and ms)
+    counted from 0 around it; the first pair again with
+    ``vit_attention="auto"`` (K3s on the rank's heads) and ``"flash"`` (K3
+    on all heads), the ViT's outputs compared; then K5's build and lookup on this rank's
+    columns and K3s on its heads at the main path's shapes against their
+    twins. Writes its numbers (rank 0 also the disparities)."""
     import torch
 
-    from foundationstereo_torch.config import ModelConfig
+    from foundationstereo_torch.config import VIT_CONFIGS, ModelConfig
     from foundationstereo_torch.inference.demo import run_pair
     from foundationstereo_torch.models.foundation_stereo import FoundationStereo
     from foundationstereo_torch.ops import kernels
@@ -2386,11 +2450,22 @@ def _spatial_rank(rank: int, world: int, url: str, backend: str, pairs: int, out
                 secs = time.perf_counter() - t0
             records.append(dict(secs=secs, launches=dict(kernels.LAUNCHES),
                                 exchanges=dict(spatial.EXCHANGES),
-                                exchange_ms=spatial.exchange_ms(timer)))
+                                exchange_ms=spatial.exchange_ms(timer),
+                                heads_ms=spatial.exchange_ms(timer, "heads"),
+                                attention_grid=attention_launched()))
             check(tuple(disp.shape) == (1, MAIN["height"], MAIN["width"])
                   and bool(torch.isfinite(disp).all()), f"[spatial] rank {rank}: disparity")
             outs.append(disp.float().cpu())
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        # The first pair with the ViT attention over the ranks' heads, then
+        # with K3 on all heads on every rank.
+        turns = []
+        for impl in ("auto", "flash"):
+            turns.append(_pair_with(model, mesh, impl))
+            turns[-1]["impl"] = impl
+        vit_equal = bool(torch.equal(turns[0]["vit"], turns[1]["vit"]))
+        for t in turns:
+            del t["vit"]
         del model
         torch.cuda.empty_cache()
         # The first pair in fp32: the partition's rounding apart from bf16's.
@@ -2401,8 +2476,11 @@ def _spatial_rank(rank: int, world: int, url: str, backend: str, pairs: int, out
                               iters=MAIN["iters"]).float().cpu()
         del model
         torch.cuda.empty_cache()
-        # K5 on this rank's columns, the ranks in turns (they may share a card).
+        # K5 on this rank's columns and K3s on its heads, the ranks in turns
+        # (they may share a card).
         part = spatial.Partition(mesh, MAIN["width"])
+        heads = VIT_CONFIGS[MAIN["vit_size"]]["num_heads"]
+        hl = heads // world
         for turn in range(world):
             distributed.barrier(dev)
             if turn != rank:
@@ -2416,11 +2494,15 @@ def _spatial_rank(rank: int, world: int, url: str, backend: str, pairs: int, out
             geo, corr, disp = _pyramids(dev, gen, 4, torch.bfloat16)
             lookup = lookup_shard(geo, corr, disp, 4, rank, c0, c1, tag)
             del geo, corr, disp
+            qkv = torch.randn(2, VIT_TOKENS, 3, heads, 64, device=dev, generator=gen).bfloat16()
+            attention = attention_shard(qkv, rank * hl, hl, rank, tag)[0]
+            del qkv
             torch.cuda.empty_cache()
         distributed.barrier(dev)
         torch.save(dict(records=records, disp=outs if rank == 0 else [], disp32=disp32,
                         checksum=[float(o.double().sum()) for o in outs + [disp32]],
-                        peak_gib=peak, build=build, lookup=lookup),
+                        peak_gib=peak, build=build, lookup=lookup, attention=attention,
+                        vit_equal=vit_equal, turns=turns),
                    out_dir / f"spatial_{backend}{world}_rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
@@ -2430,18 +2512,22 @@ def spatial_ranks(backend: str, world: int, want: list, want32, want_secs: list,
                   want_peak: float, tmp) -> list[dict]:
     """``world`` spawned ranks over ``backend`` serve the pairs of ``want``
     (the one process's disparities): each rank's launches per pair must be
-    1 K5 build, 32 K5 lookups and 24 K3 and nothing else, every rank's
-    gathered disparity the same and within mean 0.05 px and p99 0.5 px of
-    one process's; the first pair in fp32 within max 1e-2 px of one
-    process's ``want32`` (the path phase's fp32 limit). Logs each rank's
-    s/pair, collectives per pair and their ms, and peak GiB; returns the
-    ranks' records."""
+    1 K5 build, 32 K5 lookups and 24 K3s on its 16 / ``world`` heads (24 K3
+    where ``world`` does not divide the heads) and nothing else, every
+    rank's gathered disparity the same and within mean 0.05 px and p99 0.5
+    px of one process's; the first pair in fp32 within max 1e-2 px of one
+    process's ``want32`` (the path phase's fp32 limit); the first pair with
+    ``vit_attention="flash"`` (24 K3, no heads gather) giving the same ViT
+    output bit for bit and a disparity within the bf16 limits. Logs each
+    rank's s/pair, collectives per pair and their bytes and ms, and peak
+    GiB; returns the ranks' records."""
     import socket
 
     import torch
     import torch.multiprocessing as mp
 
     from foundationstereo_torch.config import VIT_CONFIGS
+    from foundationstereo_torch.ops import kernels
 
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -2456,22 +2542,53 @@ def spatial_ranks(backend: str, world: int, want: list, want32, want_secs: list,
         path.unlink()
     cards = "one card, shared" if backend == "gloo" else f"{world} cards"
     label = f"data 1 x spatial {world} over {backend} ({cards})"
+    vit = VIT_CONFIGS[MAIN["vit_size"]]
+    split = vit["num_heads"] % world == 0
     expect = dict.fromkeys(outs[0]["records"][0]["launches"], 0)
-    expect.update(cost_volume_parts_haloed=1, disparity_lookup_shard=MAIN["iters"],
-                  flash_attention=VIT_CONFIGS[MAIN["vit_size"]]["depth"])
+    expect.update(cost_volume_parts_haloed=1, disparity_lookup_shard=MAIN["iters"])
+    expect["flash_attention_heads" if split else "flash_attention"] = vit["depth"]
+    flash = dict(expect, flash_attention=vit["depth"], flash_attention_heads=0)
+    blocks = kernels.flash_attention_blocks(VIT_TOKENS, 2 * vit["num_heads"] // (world if split else 1))
     for r, out in enumerate(outs):
         for i, rec in enumerate(out["records"]):
             check(rec["launches"] == expect, f"[spatial] {label}, rank {r}, pair {i}: launches "
                                              f"{rec['launches']}, expected {expect}")
+            check(rec["attention_grid"]["blocks"] == blocks,
+                  f"[spatial] {label}, rank {r}, pair {i}: the ViT attention launched "
+                  f"{rec['attention_grid']['blocks']} blocks, expected {blocks}")
+            check(rec["exchanges"]["heads"] == (vit["depth"] if split else 0),
+                  f"[spatial] {label}, rank {r}, pair {i}: {rec['exchanges']['heads']} heads gathers")
+        turns = out["turns"]
+        for t in turns:
+            want_t = flash if t["impl"] == "flash" else expect
+            check(t["launches"] == want_t, f"[spatial] {label}, rank {r}, vit_attention="
+                                           f"'{t['impl']}': launches {t['launches']}, expected {want_t}")
         check(out["checksum"] == outs[0]["checksum"],
               f"[spatial] {label}: rank {r}'s gathered disparity differs from rank 0's")
         ex = out["records"][-1]["exchanges"]
         log(f"[spatial] {label}, rank {r}: seconds per pair "
             f"{[round(x['secs'], 4) for x in out['records']]} (one process "
-            f"{[round(x, 4) for x in want_secs]}), per pair {ex['halo']} halo exchanges and "
+            f"{[round(x, 4) for x in want_secs]}), per pair {ex['halo']} halo exchanges, "
             f"{ex['gather']} gather ({ex['bytes']} bytes of buffers), their ms "
-            f"{[round(x['exchange_ms'], 2) for x in out['records']]}, peak {out['peak_gib']:.2f} "
-            f"GiB (one process {want_peak:.2f}), launches per pair {out['records'][-1]['launches']}")
+            f"{[round(x['exchange_ms'], 2) for x in out['records']]}; {ex['heads']} heads "
+            f"gathers ({ex['heads_bytes']} bytes of buffers), their ms "
+            f"{[round(x['heads_ms'], 2) for x in out['records']]}; peak {out['peak_gib']:.2f} "
+            f"GiB (one process {want_peak:.2f}), launches per pair {out['records'][-1]['launches']} "
+            f"({out['records'][-1]['attention_grid']['blocks']} blocks per ViT attention launch)")
+        auto, flash_turn = turns[0], turns[1]
+        diff = (auto["disp"] - flash_turn["disp"]).abs()
+        mean, p99 = float(diff.mean()), float(torch.quantile(diff.flatten(), 0.99))
+        log(f"[spatial] {label}, rank {r}, pair 0: vit_attention 'auto' (K3s on "
+            f"{vit['num_heads'] // (world if split else 1)} heads, gathered) against 'flash' (K3 on "
+            f"{vit['num_heads']}): the ViT's output equal bit for bit {out['vit_equal']}; |d disp| "
+            f"mean {mean:.4g} px, p99 {p99:.4g} px, max {float(diff.max()):.4g} px, equal bit for "
+            f"bit {bool(torch.equal(auto['disp'], flash_turn['disp']))} (tolerance: mean <= 0.05 "
+            f"px, p99 <= 0.5 px); seconds per pair "
+            f"{[(t['impl'], round(t['secs'], 4)) for t in turns]}, heads gathers and their ms "
+            f"{[(t['heads'], round(t['heads_ms'], 2)) for t in turns]}")
+        check(out["vit_equal"], f"[spatial] {label}, rank {r}: the ViT's output over the ranks' "
+                                "heads differs from K3's")
+        check(mean <= 0.05 and p99 <= 0.5, f"[spatial] {label}, rank {r}: 'auto' and 'flash' disagree")
     compare_disparities(f"{label} vs one process", outs[0]["disp"], want, tag="spatial")
     d32 = float((outs[0]["disp32"] - want32).abs().max())
     log(f"[spatial] {label}, fp32 (mixed_precision=False), pair 0: max |d disp| against one "
@@ -2489,8 +2606,9 @@ def spatial_phase(dev) -> tuple[list, dict, dict]:
     train step of stereo_v1 at batch 1 on spatial 2 against one process,
     with the dp phase's bounds; then the train CLI with ``--n_devices 2
     --batch_size 1``. Returns the kernels-line rows (K5's build and lookup
-    on the gloo ranks' columns), rank 0's launches over its pairs, and each
-    run's launches per pair on every rank ({"gloo x 2": {name: [per rank]}})."""
+    on the gloo ranks' columns, K3s on their heads), rank 0's launches over
+    its pairs, and each run's launches per pair on every rank ({"gloo x 2":
+    {name: [per rank]}})."""
     import copy
     import json as _json
     import tempfile
@@ -2535,12 +2653,18 @@ def spatial_phase(dev) -> tuple[list, dict, dict]:
                 ("build", "cost_volume_parts_haloed", "foundationstereo_torch/csrc/cost_volume.cu",
                  "foundationstereo_tpu/ops/pallas_kernels.py:538"),
                 ("lookup", "disparity_lookup_shard", "foundationstereo_torch/csrc/lookup.cu",
-                 "foundationstereo_tpu/ops/pallas_kernels.py:321")):
+                 "foundationstereo_tpu/ops/pallas_kernels.py:321"),
+                ("attention", "flash_attention_heads", "foundationstereo_torch/csrc/flash_attention.cu",
+                 "foundationstereo_tpu/models/dinov2.py:106")):
             shards = [o[key] for o in gloo]
             library = (None if key == "build"
                        else sum(sh["library_ms"] for sh in shards) / len(shards))
+            extra = ({} if key != "attention" else
+                     dict(whole_ms=sum(sh["whole_ms"] for sh in shards) / len(shards),
+                          tolerance="max <= 2 bf16 ulps of max |ref|, mean <= 1 bf16 ulp of "
+                                    "mean |ref|, vs fp32 dense"))
             rows.append(_shard_row(name, source, replaces, shards, None, phase="spatial",
-                                   library_ms=library))
+                                   library_ms=library, **extra))
         launches = {}
         for rec in gloo[0]["records"]:
             for k, v in rec["launches"].items():

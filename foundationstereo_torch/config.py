@@ -63,8 +63,11 @@ class ModelConfig:
     # path does; the plain path keeps fp32 pyramids.
     bf16_pyramids: bool = True
     fused_cost_proj: bool = True      # inert
-    # ViT attention over N > 1024 patch tokens: "auto"/"flash" take the flash
-    # kernel (bf16 or fp32) when use_pallas is set, its plain twin otherwise;
+    # ViT attention over N > 1024 patch tokens: "flash" takes the flash kernel
+    # (bf16 or fp32) when use_pallas is set, its plain twin otherwise;
+    # "flash_sharded" the same per head shard of the active mesh (under a rank
+    # mesh: the rank's heads, gathered over its spatial group); "auto" is
+    # "flash_sharded" under a mesh of more than one entry, else "flash";
     # "chunked" the online softmax over key chunks; "dense" the dense form.
     vit_attention: str = "auto"
     # Training: checkpoint (recompute in the backward) the cost-filter stack

@@ -11,9 +11,11 @@ its plain twin otherwise), "flash_sharded" the same kernel per (batch, heads)
 shard of the active mesh (``ops/sharded.py:flash_attention_sharded``),
 "chunked" the online softmax over key chunks, "dense" the dense form. "auto"
 is resolved at every call, as the JAX package resolves it per trace:
-"flash_sharded" under a device ``Mesh`` of more than one entry, "flash"
-otherwise (under a ``RankMesh`` every rank runs the whole ViT: it is
-replicated).
+"flash_sharded" under a mesh of more than one entry, a device ``Mesh`` or
+a ``RankMesh``, "flash" otherwise. Under a ``RankMesh`` every rank runs the
+whole ViT on its batch rows and, where its ``spatial`` axis divides the
+heads, attends over its own heads (K3s), gathered over its spatial group;
+``vit_attention="flash"`` keeps K3 over all heads on every rank.
 Smaller N takes the dense form, as the JAX package decides.
 """
 
@@ -28,7 +30,7 @@ from foundationstereo_torch.config import VIT_CONFIGS
 from foundationstereo_torch.models.layers import Conv2d, LayerNorm, Linear, gelu
 from foundationstereo_torch.ops import kernels, sharded
 from foundationstereo_torch.ops.resize import interp_matrix_np
-from foundationstereo_torch.parallel.mesh import Mesh, current_mesh
+from foundationstereo_torch.parallel.mesh import current_mesh
 
 _VIT_ATTENTION_IMPLS = ("auto", "dense", "chunked", "flash", "flash_sharded")
 
@@ -42,7 +44,7 @@ def resolve_vit_attention(impl: str) -> str:
     if impl != "auto":
         return impl
     mesh = current_mesh()
-    return "flash_sharded" if isinstance(mesh, Mesh) and mesh.size > 1 else "flash"
+    return "flash_sharded" if mesh is not None and mesh.size > 1 else "flash"
 
 
 def _plain_heads(qkv: torch.Tensor, scale: float, h0: int, n_heads: int) -> torch.Tensor:

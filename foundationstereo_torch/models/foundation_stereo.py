@@ -56,8 +56,11 @@ offset), runs CorrStem, FeatureAtt, the hourglass, the classifier, the
 pyramids, every refinement step (K5's lookup, ``kernels.
 disparity_lookup_shard``) and the upsampling head on them with halo
 exchanges, and the outputs are gathered along W, so every rank returns the
-whole disparity. No 3x3 conv kernel runs, and the ViT's attention is K3
-whole on every rank.
+whole disparity. No 3x3 conv kernel runs. The ViT runs on every rank
+outside the partitioned region; with ``vit_attention="auto"`` its
+attention is K3s on the rank's H/S heads, gathered over the spatial group
+(``parallel.spatial.gather_heads``), where ``spatial`` divides the heads,
+and K3 whole otherwise (``vit_attention="flash"`` keeps K3 whole).
 """
 
 from __future__ import annotations

@@ -15,7 +15,13 @@ The port of the JAX package's ``shard_map``-wrapped Pallas kernels:
   refinement iteration only the disparity's columns move.
 * ``flash_attention_sharded`` -- ``models/dinov2.py:
   flash_vit_attention_sharded`` (K3s): batch on ``data``, heads on
-  ``spatial``, the K3 kernel on each shard's heads, no collective.
+  ``spatial``, the K3 kernel on each shard's heads, no collective. Under a
+  ``RankMesh`` (one process per rank) the same split: a rank's ``data``
+  index already holds its own batch rows, and where ``spatial`` > 1
+  divides H each rank of a spatial group attends over its H/S heads, which
+  ``parallel.spatial.gather_heads`` then gathers over the group; where it
+  does not divide (or is 1) the rank attends over all heads with K3 and
+  issues no collective (JAX's replicated axis).
 
 Each returns on the caller's device what the single-device kernel returns,
 bit for bit: every output element is the same arithmetic in the same order.
@@ -30,7 +36,8 @@ from typing import Callable
 import torch
 
 from foundationstereo_torch.ops import kernels
-from foundationstereo_torch.parallel.mesh import Mesh
+from foundationstereo_torch.parallel import spatial
+from foundationstereo_torch.parallel.mesh import Mesh, RankMesh
 from foundationstereo_torch.parallel.sharding import ShardPlan
 
 
@@ -88,7 +95,7 @@ def disparity_lookup_sharded(pyramids: ShardedPyramids, disp: torch.Tensor, radi
                     out_dims=3)
 
 
-def flash_attention_sharded(qkv: torch.Tensor, scale: float, mesh: Mesh | None,
+def flash_attention_sharded(qkv: torch.Tensor, scale: float, mesh: Mesh | RankMesh | None,
                             attn_fn: Callable | None = None) -> torch.Tensor:
     """qkv (B, N, 3, H, Dh) -> (B, N, H, Dh) on qkv's device, as
     ``kernels.flash_attention``: batch on ``data`` and heads on ``spatial``
@@ -98,8 +105,24 @@ def flash_attention_sharded(qkv: torch.Tensor, scale: float, mesh: Mesh | None,
     if mesh is None:
         raise ValueError("vit_attention='flash_sharded' needs a mesh: run the model under "
                          "parallel.mesh_context(mesh)")
+    if isinstance(mesh, RankMesh):
+        return _attention_over_ranks(qkv, scale, mesh, attn_fn)
     attend = kernels.flash_attention_heads if attn_fn is None else attn_fn
     plan = ShardPlan(mesh, qkv.shape[0], qkv.shape[3], qkv.device)
     h_local = qkv.shape[3] // plan.n_split
     return plan.run(lambda j, q: attend(q, scale, j * h_local, h_local), plan.split(qkv),
                     out_dims=2)
+
+
+def _attention_over_ranks(qkv, scale, mesh: RankMesh, attn_fn):
+    """This rank's part of ``flash_attention_sharded`` under a ``RankMesh``:
+    its H/S heads (K3s), gathered over its spatial group, where ``spatial``
+    > 1 divides H; otherwise all heads (K3) and no collective."""
+    heads, n = qkv.shape[3], mesh.shape["spatial"]
+    if n == 1 or heads % n:
+        if attn_fn is None:
+            return kernels.flash_attention(qkv, scale)
+        return attn_fn(qkv, scale, 0, heads)
+    attend = kernels.flash_attention_heads if attn_fn is None else attn_fn
+    h = heads // n
+    return spatial.gather_heads(attend(qkv, scale, mesh.spatial_index * h, h), mesh)

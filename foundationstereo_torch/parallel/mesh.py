@@ -8,16 +8,18 @@ Two kinds, both made current with ``mesh_context``:
   model code on its part: its slice of the batch along ``data`` and, where
   ``spatial`` > 1, its columns of the image width from the cost volume on
   (``parallel/spatial.py``, the counterpart of GSPMD's partitioning under
-  ``shard_spatial``).
+  ``shard_spatial``) and its share of the ViT attention's heads, gathered
+  over its spatial group (``ops/sharded.py:flash_attention_sharded``).
 * ``Mesh`` -- a grid of ``torch.device``s seen from one process (the JAX
   package's single-controller mesh), over which the sharded kernels run
   shard by shard.
 
-A ``Mesh`` has the named axes:
+Both have the named axes:
 
 * ``data``    -- batch parallelism;
-* ``spatial`` -- image-width sharding of the cost volume and its lookup,
-  and head sharding of the ViT attention.
+* ``spatial`` -- image-width sharding of the cost volume and its lookup
+  (and, under a ``RankMesh``, of the partitioned forward), and head
+  sharding of the ViT attention.
 
 The sharded kernels (``ops/sharded.py``) run each shard on its own entry of
 the mesh, under that device's guard, and gather the results on the device

@@ -25,11 +25,22 @@ few primitives that read along W exchange halos with their neighbours:
   edge columns. ``gather`` all-gathers along W; its backward hands each
   rank its own columns' gradient, unscaled (every rank computes the same
   loss on the gathered tensor).
+* ``gather_heads`` is the ViT attention's gather, outside the partitioned
+  region: each rank of a spatial group attends over its H/S heads
+  (``ops/sharded.py:flash_attention_sharded``, the JAX package's
+  ``flash_vit_attention_sharded`` under its mesh) and every rank gets all H.
+  It sits in the replicated region, where each rank holds a partial
+  cotangent (its columns' part; the trainer sums gradients over
+  ``spatial``), so its backward sums the cotangent over the group before it
+  hands the rank its own heads' part. The ViT is frozen and runs under
+  ``no_grad``, so the backward is not on the training path.
 
-The collectives are ``all_reduce`` only (a rank's strips, or its columns,
-written into a zero buffer and summed), which ``gloo`` supports on CUDA
-tensors as well as on the CPU, and ``nccl`` on cards: ranks that share a
-card run over ``gloo``. Buffers are fp32, so bf16 values cross exactly.
+The collectives are ``all_reduce`` only (a rank's strips, its columns or
+its heads, written into a zero buffer and summed), which ``gloo`` supports
+on CUDA tensors as well as on the CPU, and ``nccl`` on cards: ranks that
+share a card run over ``gloo``. The partition's buffers are fp32, so bf16
+values cross exactly; the heads gather's are in the tensor's own dtype (a
+sum of one value and zeros is exact in any dtype), its backward's fp32.
 A collective that fails raises on its rank, and the run fails with it.
 """
 
@@ -46,10 +57,12 @@ import torch.nn.functional as F
 
 from foundationstereo_torch.parallel.mesh import RankMesh
 
-# Collectives of the partition since the last ``reset_exchanges()``: halo
-# exchanges (forward and backward) and gathers, and the bytes each rank put
-# into their buffers.
-EXCHANGES = {"halo": 0, "halo_backward": 0, "gather": 0, "bytes": 0}
+# Collectives since the last ``reset_exchanges()``: the partition's halo
+# exchanges (forward and backward) and gathers and the bytes each rank put
+# into their buffers; the ViT attention's heads gathers (forward and
+# backward) and the bytes of theirs.
+EXCHANGES = {"halo": 0, "halo_backward": 0, "gather": 0, "bytes": 0,
+             "heads": 0, "heads_backward": 0, "heads_bytes": 0}
 # The partition of the enclosing ``region`` block, and the timer of the
 # enclosing ``timed`` block (lists: the backward runs on the autograd
 # engine's thread).
@@ -141,7 +154,9 @@ class Partition:
         return from_left.to(to_right.dtype), from_right.to(to_left.dtype)
 
 
-def _all_reduce(buf: torch.Tensor, group) -> None:
+def _all_reduce(buf: torch.Tensor, group, kind: str = "partition") -> None:
+    """Sum ``buf`` over ``group`` in place; inside a ``timed`` block, record
+    its time under ``kind``."""
     timer = _TIMER[0]
     if timer is None:
         dist.all_reduce(buf, group=group)
@@ -151,11 +166,11 @@ def _all_reduce(buf: torch.Tensor, group) -> None:
         start.record()
         dist.all_reduce(buf, group=group)
         end.record()
-        timer.append((start, end))
+        timer.append((kind, (start, end)))
     else:
         t0 = time.perf_counter()
         dist.all_reduce(buf, group=group)
-        timer.append((time.perf_counter() - t0) * 1e3)
+        timer.append((kind, (time.perf_counter() - t0) * 1e3))
 
 
 class _Halo(torch.autograd.Function):
@@ -199,6 +214,37 @@ class _Gather(torch.autograd.Function):
         return g[..., c0:c1].contiguous(), None
 
 
+class _GatherHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        n, k = mesh.shape["spatial"], mesh.spatial_index
+        b, t, h, d = x.shape
+        ctx.heads, ctx.group = (k * h, (k + 1) * h), mesh.spatial_group
+        buf = x.new_zeros((n * b, t, h, d))             # the ranks' x, one after another
+        buf[k * b:(k + 1) * b] = x
+        _all_reduce(buf, ctx.group, "heads")
+        EXCHANGES["heads"] += 1
+        EXCHANGES["heads_bytes"] += buf.numel() * buf.element_size()
+        return buf.view(n, b, t, h, d).permute(1, 2, 0, 3, 4).reshape(b, t, n * h, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        h0, h1 = ctx.heads
+        buf = g.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        _all_reduce(buf, ctx.group, "heads")
+        EXCHANGES["heads_backward"] += 1
+        EXCHANGES["heads_bytes"] += buf.numel() * 4
+        return buf[:, :, h0:h1].to(g.dtype), None
+
+
+def gather_heads(x: torch.Tensor, mesh: RankMesh) -> torch.Tensor:
+    """x (B, N, H/S, Dh), the heads [s H/S, (s + 1) H/S) of spatial rank s
+    -> (B, N, H, Dh) on every rank of the spatial group, bit for bit what
+    each owner computed. Issued outside the partitioned region, by every
+    rank of the group at the same point."""
+    return _GatherHeads.apply(x, mesh)
+
+
 def partition(mesh, width: int) -> Partition | None:
     """The partition of a forward on ``width``-column images under ``mesh``:
     None unless it is a ``RankMesh`` whose ``spatial`` axis is > 1."""
@@ -225,9 +271,10 @@ def region(part: Partition | None):
 
 @contextlib.contextmanager
 def timed():
-    """Inside the block each collective of the partition is timed: yields a
-    list that receives, per collective, a pair of CUDA events (on a card)
-    or its host milliseconds (on the CPU); ``exchange_ms`` sums it."""
+    """Inside the block each collective of this module is timed: yields a
+    list that receives, per collective, its kind ("partition" or "heads")
+    and a pair of CUDA events (on a card) or its host milliseconds (on the
+    CPU); ``exchange_ms`` sums it."""
     prev, _TIMER[0] = _TIMER[0], []
     try:
         yield _TIMER[0]
@@ -235,9 +282,11 @@ def timed():
         _TIMER[0] = prev
 
 
-def exchange_ms(timer: list) -> float:
-    """Milliseconds of the collectives a ``timed`` block recorded."""
-    return float(sum(t if isinstance(t, float) else t[0].elapsed_time(t[1]) for t in timer))
+def exchange_ms(timer: list, kind: str = "partition") -> float:
+    """Milliseconds of the collectives of one ``kind`` ("partition" or
+    "heads") a ``timed`` block recorded."""
+    return float(sum(t if isinstance(t, float) else t[0].elapsed_time(t[1])
+                     for k, t in timer if k == kind))
 
 
 def refuse(what: str) -> None:

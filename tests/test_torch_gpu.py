@@ -549,6 +549,49 @@ def test_head_sliced_attention_kernel(cuda, dtype):
     assert torch.equal(got, kernels.flash_attention(qkv, 0.125))
 
 
+def _attention_rank(rank: int, url: str, out) -> None:
+    """A rank of a data 1 x spatial 2 ``RankMesh`` on card 0 over ``gloo``:
+    ``flash_attention_sharded`` (its 4 heads of 8, then the heads gather)
+    against K3 on all heads, in fp32 and in bf16, with its launches."""
+    from foundationstereo_torch.parallel import distributed, spatial
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    distributed.initialize(url, 2, rank, backend="gloo")
+    try:
+        mesh = make_mesh()
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            g = torch.Generator(device=dev).manual_seed(16)
+            qkv = torch.randn(2, 1100, 3, 8, 64, device=dev, generator=g).to(dtype)
+            kernels.reset_launches()
+            spatial.reset_exchanges()
+            got = sharded.flash_attention_sharded(qkv, 0.125, mesh)
+            launches, exchanges = dict(kernels.LAUNCHES), dict(spatial.EXCHANGES)
+            res[str(dtype)] = dict(equal=bool(torch.equal(got, kernels.flash_attention(qkv, 0.125))),
+                                   launches=launches, exchanges=exchanges)
+        torch.save(res, out / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_sharded_attention_over_two_ranks_sharing_one_card(cuda, tmp_path):
+    """Under a ``RankMesh`` of spatial 2 each rank attends over its heads
+    (one K3s launch, no K3) and the heads gather gives it K3's output bit
+    for bit, in fp32 and in bf16."""
+    import torch.multiprocessing as mp
+
+    url = (tmp_path / "rendezvous").absolute().as_uri()
+    mp.spawn(_attention_rank, args=(url, tmp_path), nprocs=2, join=True)
+    for rank in range(2):
+        res = torch.load(tmp_path / f"rank{rank}.pt")
+        for dtype, r in res.items():
+            assert r["equal"], (rank, dtype)
+            assert r["launches"]["flash_attention_heads"] == 1, (rank, dtype, r["launches"])
+            assert r["launches"]["flash_attention"] == 0, (rank, dtype, r["launches"])
+            assert r["exchanges"]["heads"] == 1, (rank, dtype, r["exchanges"])
+
+
 def test_sharded_kernels_on_distinct_cards(two_cards):
     """Shards on two cards, gathered on the first: the same bits as one card."""
     c0, c1 = two_cards

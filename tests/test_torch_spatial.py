@@ -29,6 +29,18 @@ on the CPU: ``gloo`` ranks in spawned processes against one process.
   summation order adds as much (measured: 5.5e-7 and 8.0e-7).
 * The train CLI with ``--device cpu --n_devices 2 --batch_size 1`` (spatial
   2, as the JAX CLI's ``make_mesh(2)``): 2 steps and a resume.
+* The ViT attention over the ranks (``vit_attention="auto"``, N 1025 > the
+  dense cut-off, dim 128, 4 heads, fp32): on 2 ranks each attends over its
+  2 heads and one heads gather gives every rank all 4; on 3 (4 % 3 != 0)
+  each attends over all 4 with no collective. Against the JAX package's
+  ``flash_vit_attention_sharded`` on a (1, 2) and a (1, 3) CPU mesh (its
+  flash kernel has no CPU path: ``chunked_attention`` per shard, as
+  ``test_torch_parallel.py`` runs it), the module's projection applied to
+  both: ``test_torch_parallel.py``'s tolerance; against the port in one
+  process within 1e-6. The gather's backward, with the partial cotangents
+  the replicated region holds (rank s: the tokens t with t % S == s): the
+  gradient w.r.t. qkv, summed over the ranks, against one process's within
+  1e-6.
 
 Ranks meet through a ``file://`` rendezvous in a temporary directory and run
 torch on one thread. JAX is imported inside the fixtures only: every
@@ -48,9 +60,10 @@ import torch.multiprocessing as mp
 from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.models import layers
 from foundationstereo_torch.models.cost_filter import Classifier, CorrStem, Hourglass
+from foundationstereo_torch.models.dinov2 import Attention, _plain_heads, resolve_vit_attention
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo, kernel_mode
 from foundationstereo_torch.models.update import RaftConvGRU, interp
-from foundationstereo_torch.ops import kernels
+from foundationstereo_torch.ops import kernels, sharded
 from foundationstereo_torch.ops.resize import resize_dhw
 from foundationstereo_torch.ops.upsample import avg_pool2x, context_upsample
 from foundationstereo_torch.parallel import distributed, make_mesh, mesh_context, spatial
@@ -62,6 +75,7 @@ CFG = ModelConfig(max_disp=64, vit_size="vits", mixed_precision=False, bf16_pyra
 FWD_HW, FWD_ITERS = (64, 128), 2
 FILTER = dict(b=1, d=16, h=16, w=64, chans=(48, 64, 96, 128))
 IMAGE_W = 224                       # the primitives' image: 7 units of 32 columns
+ATTN = dict(n=1025, dim=128, heads=4)   # N above the ViT's 1024-token dense cut-off
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -219,6 +233,74 @@ def _primitives_rank(rank: int, world: int, out: Path) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the ViT attention over the ranks
+# ---------------------------------------------------------------------------
+
+def _attention_case():
+    """(module, x, qkv, cotangent): the seeded Attention (vit_attention
+    "auto", its kernel wrappers), its input, and a qkv and cotangent for the
+    gather's backward."""
+    rng = np.random.default_rng(5)
+    n, dim, heads = ATTN["n"], ATTN["dim"], ATTN["heads"]
+    attn = _seeded(Attention(dim, heads), 13)
+    x = _rand(rng, 1, n, dim)
+    qkv = _rand(rng, 1, n, 3, heads, dim // heads)
+    return attn, x, qkv, _rand(rng, 1, n, heads, dim // heads)
+
+
+def _attention_rank(mesh) -> dict:
+    """The Attention module's output under ``mesh``, the attention wrappers'
+    calls ((h0, n_heads) per head shard, "whole" per K3 call) and the
+    collectives it issued; and the gradient w.r.t. qkv, through
+    ``flash_attention_sharded`` with the differentiable twin, of this
+    rank's part of (out * cot).sum(): the tokens t with t % S == s, as the
+    replicated region's cotangents differ per rank."""
+    attn, x, qkv, cot = _attention_case()
+    calls = []
+    heads, whole = kernels.flash_attention_heads, kernels.flash_attention
+    kernels.flash_attention_heads = lambda q, s, h0, n: calls.append((h0, n)) or heads(q, s, h0, n)
+    kernels.flash_attention = lambda q, s: calls.append("whole") or whole(q, s)
+    spatial.reset_exchanges()
+    try:
+        with mesh_context(mesh), torch.no_grad():
+            y = attn(x)
+    finally:
+        kernels.flash_attention_heads, kernels.flash_attention = heads, whole
+    exchanges = dict(spatial.EXCHANGES)
+    qkv.requires_grad_()
+    out = sharded.flash_attention_sharded(qkv, 0.125, mesh, _plain_heads)
+    n_spatial, s = mesh.shape["spatial"], mesh.spatial_index
+    (out * cot)[:, s::n_spatial].sum().backward()
+    return {"y": y, "calls": calls, "exchanges": exchanges, "dqkv": qkv.grad,
+            "heads_backward": spatial.EXCHANGES["heads_backward"]}
+
+
+def _attention_refs(n_spatial: int) -> dict:
+    """In this process: the port's Attention with no mesh, the JAX package's
+    ``flash_vit_attention_sharded`` on a (1, ``n_spatial``) CPU mesh with the
+    module's qkv and projection, and the one-process qkv gradient."""
+    import jax.numpy as jnp
+
+    from foundationstereo_tpu.models.dinov2 import chunked_attention, flash_vit_attention_sharded
+    from foundationstereo_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    attn, x, qkv, cot = _attention_case()
+    b, n, dim = x.shape
+    heads = ATTN["heads"]
+    with torch.no_grad():
+        one = attn(x)
+        q, k, v = (jnp.asarray(t.numpy()) for t in
+                   attn.qkv(x).reshape(b, n, 3, heads, dim // heads).unbind(2))
+        jout = flash_vit_attention_sharded(q, k, v, (dim // heads) ** -0.5,
+                                           jax_make_mesh(n_spatial, shape=(1, n_spatial)),
+                                           attn_fn=chunked_attention)
+        jax_y = attn.proj(torch.from_numpy(np.array(jout)).reshape(b, n, dim))
+    qkv.requires_grad_()
+    (_plain_heads(qkv, 0.125, 0, heads) * cot).sum().backward()
+    return {"one": one, "jax": jax_y, "dqkv": qkv.grad}
+
+
+# ---------------------------------------------------------------------------
 # the filter stack and the whole forward, on 2 ranks
 # ---------------------------------------------------------------------------
 
@@ -255,11 +337,11 @@ def _fwd_inputs():
 def _two_rank_work(rank: int, out: Path) -> None:
     """Rank 0 of 2 keeps: the primitives, the filter stack's and the
     forward's gathered outputs, the forward's kernel calls, and the spatial-2
-    train step at batch 1 (rank 1 its checksums)."""
+    train step at batch 1 (rank 1 its checksums); both keep the attention's."""
     _primitives_rank(rank, 2, out)
     mesh = make_mesh()
     assert mesh.shape == {"data": 1, "spatial": 2}
-    res = {}
+    res = {"attention": _attention_rank(mesh)}
     flt = _Filter().eval()
     flt.load_state_dict(torch.load(out / "filter_weights.pt"))
     vol, feats = _filter_inputs()
@@ -347,6 +429,7 @@ def two_ranks(tmp_path_factory):
                                test_mode=True)
     del model
     ref["primitives"] = {name: _run_primitive(name, None) for name in PRIMITIVES}
+    ref["attention"] = _attention_refs(2)
     ref["step"] = _one_step(_global_batch(1))[0]
     _join(ctx)
     got = [torch.load(out / f"two{r}.pt") for r in range(2)]
@@ -356,11 +439,25 @@ def two_ranks(tmp_path_factory):
     return got, ref
 
 
+def _three_rank_work(rank: int, out: Path) -> None:
+    """The primitives on 3 ranks, and every rank's attention, on a data 1 x
+    spatial 3 mesh."""
+    _primitives_rank(rank, 3, out)
+    mesh = make_mesh(shape=(1, 3))
+    assert mesh.spatial_index == rank
+    torch.save(_attention_rank(mesh), out / f"attention3_{rank}.pt")
+
+
 @pytest.fixture(scope="module")
 def three_ranks(tmp_path_factory):
+    """Rank 0's primitives, every rank's attention, and its references."""
     out = tmp_path_factory.mktemp("spatial3")
-    _join(_spawn(_primitives_rank, 3, out, 3, out))
-    return torch.load(out / "primitives3.pt")
+    ctx = _spawn(_three_rank_work, 3, out, out)
+    ref = _attention_refs(3)
+    _join(ctx)
+    return {"primitives": torch.load(out / "primitives3.pt"),
+            "attention": [torch.load(out / f"attention3_{r}.pt") for r in range(3)],
+            "attention_ref": ref}
 
 
 def _check_primitive(got: dict, want: dict, name: str) -> None:
@@ -388,7 +485,52 @@ def test_primitive_on_two_ranks(two_ranks, name):
 
 @pytest.mark.parametrize("name", PRIMITIVES)
 def test_primitive_on_three_uneven_ranks(two_ranks, three_ranks, name):
-    _check_primitive(three_ranks[name], two_ranks[1]["primitives"][name], name)
+    _check_primitive(three_ranks["primitives"][name], two_ranks[1]["primitives"][name], name)
+
+
+def _check_attention(got: dict, ref: dict) -> None:
+    np.testing.assert_allclose(got["y"].numpy(), ref["jax"].numpy(), rtol=1e-5, atol=1e-5)
+    _close(got["y"], ref["one"], 1e-6, "attention against one process")
+
+
+def test_attention_on_two_ranks_takes_its_heads_and_matches_jax(two_ranks):
+    """Rank s attends over the heads [2 s, 2 s + 2) once, one heads gather
+    gives it all 4, and the output is JAX's sharded attention's."""
+    got, ref = two_ranks
+    for rank, g in enumerate(got):
+        att = g["attention"]
+        assert att["calls"] == [(2 * rank, 2)], att["calls"]
+        assert att["exchanges"]["heads"] == 1
+        assert att["exchanges"]["heads_bytes"] == 4 * ATTN["n"] * ATTN["dim"]   # fp32 over gloo
+        assert att["exchanges"]["halo"] == att["exchanges"]["gather"] == 0
+        assert att["exchanges"]["bytes"] == 0                # the partition's alone
+        _check_attention(att, ref["attention"])
+
+
+def test_attention_gather_backward_on_two_ranks(two_ranks):
+    """Each rank holds its part of the cotangent; the backward sums it over
+    the ranks (one collective) and hands each its own heads: their qkv
+    gradients sum to one process's."""
+    got, ref = two_ranks
+    total = sum(g["attention"]["dqkv"] for g in got)
+    _close(total, ref["attention"]["dqkv"], 1e-6, "qkv gradient summed over the ranks")
+    for rank, g in enumerate(got):
+        assert g["attention"]["heads_backward"] == 1
+        dq = g["attention"]["dqkv"]
+        other = [h for h in range(ATTN["heads"]) if h // 2 != rank]
+        assert not dq[:, :, :, other].any()
+
+
+def test_attention_on_three_ranks_is_whole_and_matches_jax(three_ranks):
+    """4 heads do not split over 3 ranks: each attends over all of them
+    with K3's wrapper and issues no collective, as JAX's replicated axis."""
+    for att in three_ranks["attention"]:
+        assert att["calls"] == ["whole"], att["calls"]
+        assert all(v == 0 for v in att["exchanges"].values()), att["exchanges"]
+        _check_attention(att, three_ranks["attention_ref"])
+        assert att["heads_backward"] == 0
+    total = sum(att["dqkv"] for att in three_ranks["attention"])
+    _close(total, three_ranks["attention_ref"]["dqkv"], 1e-6, "qkv gradient summed over the ranks")
 
 
 def test_filter_stack_on_two_ranks_matches_jax(two_ranks):
@@ -510,6 +652,35 @@ def test_partition_columns_by_units_of_32():
     with pytest.raises(NotImplementedError, match="InstanceNorm"), spatial.region(part):
         layers.InstanceNorm()(torch.zeros(1, 2, 3, 24))
     assert spatial.partition(None, 320) is None
+
+
+def test_resolve_vit_attention_under_a_rank_mesh(monkeypatch):
+    """"auto" is "flash_sharded" under any mesh of more than one entry (the
+    JAX package's rule); on a data 2 x spatial 1 rank mesh, or where the
+    heads do not divide, the sharded attention is one K3 call over all heads
+    and no collective (there is no process group here to issue one)."""
+    class FakeMesh(RankMesh):
+        def __init__(self, nd, ns):
+            self.shape, self.spatial_index = {"data": nd, "spatial": ns}, 0
+
+    assert resolve_vit_attention("auto") == "flash"
+    for shape, want in (((1, 2), "flash_sharded"), ((2, 1), "flash_sharded"),
+                        ((1, 1), "flash")):
+        with mesh_context(FakeMesh(*shape)):
+            assert resolve_vit_attention("auto") == want, shape
+            assert resolve_vit_attention("flash") == "flash"
+    calls = []
+    whole = kernels.flash_attention
+    monkeypatch.setattr(kernels, "flash_attention", lambda q, s: calls.append(q.shape) or whole(q, s))
+    monkeypatch.setattr(kernels, "flash_attention_heads", None)      # must not be reached
+    rng = np.random.default_rng(1)
+    spatial.reset_exchanges()
+    for shape, heads in (((2, 1), 4), ((1, 2), 3)):
+        qkv = _rand(rng, 1, 40, 3, heads, 8)
+        got = sharded.flash_attention_sharded(qkv, 0.3, FakeMesh(*shape))
+        assert torch.equal(got, whole(qkv, 0.3))
+    assert calls == [(1, 40, 3, 4, 8), (1, 40, 3, 3, 8)]
+    assert all(v == 0 for v in spatial.EXCHANGES.values())
 
 
 def test_kernel_mode_under_a_rank_mesh():
