@@ -38,6 +38,10 @@ checkpoints CorrStem, FeatureAtt, Hourglass and Classifier,
 ``remat_refine`` each refinement step and ``scan_upsample`` each step's
 upsampling head (``layers.checkpointed``).
 
+The forward's stages are spans (``utils/trace.py``), recorded only inside
+``trace.recording()``: ``forward``, ``features``, ``filter`` and
+``refine``, inside it each step's ``lookup`` and ``update``.
+
 Under a device ``Mesh`` (``parallel.mesh_context``) each forward call picks
 its kernels as the JAX package's ``_pallas_mode`` does (``kernel_mode``):
 the width-sharded build and lookup (``ops/sharded.py``, K5) where the mesh's
@@ -91,6 +95,7 @@ from foundationstereo_torch.ops.upsample import context_upsample, disparity_regr
 from foundationstereo_torch.parallel import spatial
 from foundationstereo_torch.parallel.mesh import Mesh, RankMesh, current_mesh
 from foundationstereo_torch.utils.misc import IMAGENET_MEAN, IMAGENET_STD
+from foundationstereo_torch.utils.trace import span
 
 
 def normalize_image(img: torch.Tensor) -> torch.Tensor:
@@ -202,6 +207,10 @@ class FoundationStereo(nn.Module):
                 low_memory: bool = False, init_disp: torch.Tensor | None = None,
                 train: bool = False):
         del low_memory      # part of the reference's forward contract; nothing to gate
+        with span("forward"):
+            return self._forward(left, right, iters, test_mode, init_disp, train)
+
+    def _forward(self, left, right, iters, test_mode, init_disp, train):
         if train != self.training:
             raise ValueError(f"train={train} but the model is in {'train' if self.training else 'eval'}"
                              f" mode: call model.{'train' if train else 'eval'}() first")
@@ -227,11 +236,12 @@ class FoundationStereo(nn.Module):
         img1 = normalize_image(left).to(dt)
         img2 = normalize_image(right).to(dt)
 
-        out, vit_feat = self.feature(torch.cat([img1, img2], dim=0))
-        vit_feat = vit_feat[:B]
-        fl = [o[:B] for o in out]
-        fr = [o[B:] for o in out]
-        stem_2x = self.stem_2(img1)
+        with span("features"):
+            out, vit_feat = self.feature(torch.cat([img1, img2], dim=0))
+            vit_feat = vit_feat[:B]
+            fl = [o[:B] for o in out]
+            fr = [o[B:] for o in out]
+            stem_2x = self.stem_2(img1)
 
         # Cost volume as parts: CorrStem contracts them with the left term.
         lproj, rproj = self.proj_cmb(fl[0]), self.proj_cmb(fr[0])
@@ -248,18 +258,19 @@ class FoundationStereo(nn.Module):
         else:
             build = kernels.cost_volume_parts if mode == "single" else cost_volume.cost_volume_parts
             gwc, rps = build(*args, out_dtype=dt)
-        with spatial.region(part):
-            comb = filt(self.corr_stem, (gwc, rps, lproj))
-            del gwc, rps
-            comb = filt(self.corr_feature_att, comb, fl[0])
-            comb = filt(self.cost_agg, comb, fl)
-            # Initial disparity: soft-argmin in fp32.
-            prob = torch.softmax(filt(self.classifier, comb).float(), dim=1)  # (B, D, H/4, W/4)
-        given_disp = init_disp
-        if init_disp is None:
-            init_disp = disparity_regression(prob, D)
-        elif part is not None:
-            init_disp = part.take(init_disp)
+        with span("filter"):
+            with spatial.region(part):
+                comb = filt(self.corr_stem, (gwc, rps, lproj))
+                del gwc, rps
+                comb = filt(self.corr_feature_att, comb, fl[0])
+                comb = filt(self.cost_agg, comb, fl)
+                # Initial disparity: soft-argmin in fp32.
+                prob = torch.softmax(filt(self.classifier, comb).float(), dim=1)  # (B, D, H/4, W/4)
+            given_disp = init_disp
+            if init_disp is None:
+                init_disp = disparity_regression(prob, D)
+            elif part is not None:
+                init_disp = part.take(init_disp)
 
         cnet_list = self.cnet(img1, vit_feat)
         net_list = [torch.tanh(h) for h, _ in cnet_list]
@@ -294,16 +305,18 @@ class FoundationStereo(nn.Module):
         del geo_pyr, corr_pyr
 
         def refine(net_list, disp):
-            geo_feat = lookup(disp, cfg.corr_radius, out_dtype=dt)
-            net_list, mask_feat, delta = self.update_block(
-                net_list, inp_list, geo_feat, disp[:, None].to(dt), att)
+            with span("lookup"):
+                geo_feat = lookup(disp, cfg.corr_radius, out_dtype=dt)
+            with span("update"):
+                net_list, mask_feat, delta = self.update_block(
+                    net_list, inp_list, geo_feat, disp[:, None].to(dt), att)
             return net_list, disp + delta[:, 0].float(), mask_feat
 
         gather = (lambda x: x) if part is None else part.gather  # noqa: E731
         disp = init_disp.float().contiguous()
         mask_feat = torch.zeros((B, 32) + disp.shape[1:], device=disp.device, dtype=dt)
         preds = []
-        with spatial.region(part):
+        with span("refine"), spatial.region(part):
             for _ in range(iters):
                 disp = disp.detach()
                 if remat_refine:

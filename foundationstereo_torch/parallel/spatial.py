@@ -48,7 +48,6 @@ from __future__ import annotations
 
 import contextlib
 import functools
-import time
 
 import numpy as np
 import torch
@@ -56,6 +55,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from foundationstereo_torch.parallel.mesh import RankMesh
+from foundationstereo_torch.utils.trace import Recorder, recording, span
 
 # Collectives since the last ``reset_exchanges()``: the partition's halo
 # exchanges (forward and backward) and gathers and the bytes each rank put
@@ -63,11 +63,9 @@ from foundationstereo_torch.parallel.mesh import RankMesh
 # backward) and the bytes of theirs.
 EXCHANGES = {"halo": 0, "halo_backward": 0, "gather": 0, "bytes": 0,
              "heads": 0, "heads_backward": 0, "heads_bytes": 0}
-# The partition of the enclosing ``region`` block, and the timer of the
-# enclosing ``timed`` block (lists: the backward runs on the autograd
-# engine's thread).
+# The partition of the enclosing ``region`` block (a list: the backward
+# runs on the autograd engine's thread).
 _REGION: list = [None]
-_TIMER: list = [None]
 
 
 def reset_exchanges() -> None:
@@ -155,22 +153,9 @@ class Partition:
 
 
 def _all_reduce(buf: torch.Tensor, group, kind: str = "partition") -> None:
-    """Sum ``buf`` over ``group`` in place; inside a ``timed`` block, record
-    its time under ``kind``."""
-    timer = _TIMER[0]
-    if timer is None:
+    """Sum ``buf`` over ``group`` in place, in a span ``exchange.<kind>``."""
+    with span(f"exchange.{kind}"):
         dist.all_reduce(buf, group=group)
-        return
-    if buf.is_cuda:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        dist.all_reduce(buf, group=group)
-        end.record()
-        timer.append((kind, (start, end)))
-    else:
-        t0 = time.perf_counter()
-        dist.all_reduce(buf, group=group)
-        timer.append((kind, (time.perf_counter() - t0) * 1e3))
 
 
 class _Halo(torch.autograd.Function):
@@ -269,24 +254,18 @@ def region(part: Partition | None):
         _REGION[0] = prev
 
 
-@contextlib.contextmanager
 def timed():
-    """Inside the block each collective of this module is timed: yields a
-    list that receives, per collective, its kind ("partition" or "heads")
-    and a pair of CUDA events (on a card) or its host milliseconds (on the
-    CPU); ``exchange_ms`` sums it."""
-    prev, _TIMER[0] = _TIMER[0], []
-    try:
-        yield _TIMER[0]
-    finally:
-        _TIMER[0] = prev
+    """Inside the block every span is recorded, each collective of this
+    module as ``exchange.<kind>`` ("partition" or "heads"): the recorder of
+    ``utils.trace.recording``, which ``exchange_ms`` reads."""
+    return recording()
 
 
-def exchange_ms(timer: list, kind: str = "partition") -> float:
+def exchange_ms(recorder: Recorder, kind: str = "partition") -> float:
     """Milliseconds of the collectives of one ``kind`` ("partition" or
-    "heads") a ``timed`` block recorded."""
-    return float(sum(t if isinstance(t, float) else t[0].elapsed_time(t[1])
-                     for k, t in timer if k == kind))
+    "heads") a ``timed`` block recorded: on the card's clock, or the host's
+    without a card."""
+    return recorder.ms(f"exchange.{kind}")
 
 
 def refuse(what: str) -> None:

@@ -1,0 +1,11 @@
+"""Milliseconds per pair of the features stage: the program's `features`
+span (`feature` on both images and `stem_2`), on the card's clock (the
+recorder's CUDA events at the span's ends), summed over the hooked half of
+a traced run, host gaps inside the span included. Nothing to read where
+the program records no such span."""
+
+from portbench.spans import hooked_ms
+
+
+def read(rec):
+    return hooked_ms(rec, "features")
