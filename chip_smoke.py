@@ -7,7 +7,7 @@ Phases:
 
 1. env     -- the card's name and power limit (nvidia-smi), torch / CUDA
               versions, the TF32 settings this run uses (both off).
-2. build   -- compile the four CUDA kernels from ``foundationstereo_torch/csrc``
+2. build   -- compile the five CUDA kernel sources from ``foundationstereo_torch/csrc``
               (one nvcc per source, in parallel) and print the build seconds.
 3. kernels -- each kernel against its plain PyTorch twin on the card, at the
               shapes of the main path (ViT-L, max_disp 416, 736x1280): max abs
@@ -39,7 +39,10 @@ Phases:
               K3s) carry two bounds: the FMA one (``fp32_bound_ms``, at the
               fp32 peak) and the three-pass TF32 one the kernels are judged
               against (``fp32_tf32x3_bound_ms``, 3 x the products at the TF32
-              peak).
+              peak). The classifier's one-channel 7x7x7 conv (K6) is held at
+              the served shape at batch 1 and 4, in fp32, and on a spatial-2
+              rank's haloed columns (W padding 0), with its FMA and tensor
+              bounds, the twin's time and ``F.conv3d``'s (``library_ms``).
 4. path    -- the whole forward at a reduced size (448x672, 4 iterations)
               through the kernels, through the kernels with the 3x3 conv
               kernel (``pallas_conv3x3``), and through the plain twins, with
@@ -52,16 +55,17 @@ Phases:
               random weights) answers 3 requests of 736x1280 pairs through
               ``inference.demo.run_pair`` with 32 iterations; the output must
               be finite and of the right shape, and the launch counts must be
-              1 cost-volume, 24 attention and 32 lookup launches per pair (no conv
-              launches: the served configuration keeps pallas_conv3x3 off).
+              1 cost-volume, 24 attention, 32 lookup and 1 K6 launches per pair
+              (no 3x3 conv launches: the served configuration keeps
+              pallas_conv3x3 off).
 6. demo    -- the same configuration with ``pallas_conv3x3`` answers demo
               requests through ``inference.demo.infer``: 2 pinhole pairs of
               736x1280 with the hierarchical two-pass (depth and a point cloud
               with outlier removal, written to a temporary directory) and 1
               panorama pair of 640x1280 in one pass; disparities finite and of
               the input's shape, clouds non-empty, and per pass 1 cost-volume,
-              24 attention, 32 lookup and K4_OUTSIDE + 32 x K4_PER_ITER conv
-              launches.
+              24 attention, 32 lookup, 1 K6 and K4_OUTSIDE + 32 x K4_PER_ITER
+              conv launches.
 7. mesh    -- the multi-device path on a data 1 x spatial 4 mesh that names
               the first card four times (``make_mesh(devices=[cuda:0] * 4)``:
               each shard runs at the per-device shapes of a 4-card mesh).
@@ -71,7 +75,7 @@ Phases:
               per shard, and their stitched outputs against K1, K2 and K3
               (bit for bit); then the served configuration answers 3
               requests through ``run_pair`` under ``mesh_context``: per pair
-              4 build, 128 lookup and 96 attention launches, no K1-K4
+              4 build, 128 lookup, 96 attention and 1 K6 launches, no K1-K4
               launches, and the disparity of the unsharded forward on the
               same pairs, served before and after (their seconds and peak
               memory are printed beside). K3s's fp32 variant is held per
@@ -106,7 +110,7 @@ Phases:
               bit the in-memory model's); eval fixtures at the KITTI 2015
               frame size (375x1242) through ``scripts.eval`` over the
               Middlebury, ETH3D and KITTI 2015 layouts (32 iterations), one
-              ``--hiera 1`` and one ``--scale 0.5`` frame, with exact K1/K2/K3
+              ``--hiera 1`` and one ``--scale 0.5`` frame, with exact K1/K2/K3/K6
               launches per frame (``pass_launches``), finite summaries and
               the JSONL rows; ``scripts.make_export`` at 448x672, 22
               iterations, symbolic batch, whose loaded program at batch 1
@@ -122,9 +126,9 @@ Phases:
               in 2 spawned ranks that share card 0 over ``gloo`` (and in 2 and 4 ranks on distinct
               cards over ``nccl`` where there are as many) under a data 1 x
               spatial n ``RankMesh``: every rank's launches per pair must be
-              1 K5 build, 32 K5 lookups and 24 K3s on its 16/n heads of the
-              ViT's attention (each followed by a heads gather over the
-              group) and no K1, K2, K3 or K4; every rank's gathered disparity
+              1 K5 build, 32 K5 lookups, 1 K6 on its haloed columns and 24
+              K3s on its 16/n heads of the ViT's attention (each followed by
+              a heads gather over the group) and no K1, K2, K3 or K4; every rank's gathered disparity
               the same, and within mean 0.05 px and p99 0.5 px of the one
               process's (in fp32 within max 1e-2 px). The first pair once
               more with ``vit_attention="flash"`` (K3 on all 16 heads on
@@ -217,7 +221,7 @@ OFFLINE = dict(eval_hw=(375, 1242), eval_frames=2, fixture_max_disp=192,
 # the ViT attention, gathered over the ranks).
 SPATIAL_KERNELS = ("cost_volume_parts_haloed", "disparity_lookup_shard", "flash_attention_heads")
 # The kernels the offline path runs (the served configuration: no K4).
-OFFLINE_KERNELS = ("cost_volume_parts", "disparity_lookup", "flash_attention")
+OFFLINE_KERNELS = ("cost_volume_parts", "disparity_lookup", "flash_attention", "conv3d_1out")
 # K4 at the main path's shapes: (name, C, F, spatial after the channel axis,
 # dtype). Every tile path of either type is among them.
 _H4, _W4 = MAIN["height"] // 4, MAIN["width"] // 4
@@ -846,6 +850,111 @@ def check_conv3x3(dev, gen) -> dict:
     return row
 
 
+def conv3d_1out_errors(out, ref) -> tuple[float, float, bool]:
+    """(max abs err, mean abs err, within both limits) of K6's output
+    against its twin's. Both sum the same exact products (C K^3 = 4802 at
+    the classifier) in fp32, maybe in another order, and round once. fp32:
+    max <= 1e-5 max |ref|. bf16: per element 1 bf16 ulp of |ref| (the two
+    roundings) + 1e-6 (the sums before them), mean <= 0.5 mean bf16 ulp of
+    |ref| (a skipped tap, row or channel moves the mean by far more)."""
+    import torch
+
+    o32, r32 = out.float(), ref.float()
+    diff = (o32 - r32).abs()
+    mean_err = float(diff.mean())
+    if out.dtype == torch.float32:
+        return float(diff.max()), mean_err, float(diff.max()) <= 1e-5 * float(r32.abs().max())
+    ulp = bf16_ulp(r32)
+    return float(diff.max()), mean_err, (bool((diff <= ulp + 1e-6).all())
+                                         and mean_err <= 0.5 * float(ulp.mean()))
+
+
+def k6_launched(shape) -> dict:
+    """The last K6 launch's blocks and block tile, as its C entry point
+    reported them, checked against ``kernels.conv3d_1out_grid``."""
+    from foundationstereo_torch.ops import kernels
+
+    (gx, gy, gz), (td, th, tw) = (kernels.CONV3D_1OUT_LAUNCHED[k] for k in ("grid", "tile"))
+    want = kernels.conv3d_1out_grid(*shape)
+    check((gx, gy, gz) == want, f"conv3d_1out launched grid {(gx, gy, gz)}, helper {want}")
+    return dict(blocks=gx * gy * gz, tile=f"{td}x{th}x{tw} outputs (d, h, w), "
+                                          f"{kernels.CONV3D_1OUT_LAUNCHED['threads']} threads")
+
+
+# K6 at the classifier's shape (the fp32 volume of 14 channels at 1/4
+# resolution, max_disp / 4 = 104 disparities, bf16 weights, padding 3) at
+# batch 1 and 4, the same in fp32, and a rank's columns of a spatial-2 mesh
+# (the 160 columns with a 3-column halo on each side, W padding 0):
+# (name, batch, width, padding, compute dtype).
+K6_CASES = [("classifier b1", 1, MAIN["width"] // 4, (3, 3, 3), "bfloat16"),
+            ("classifier b4", 4, MAIN["width"] // 4, (3, 3, 3), "bfloat16"),
+            ("classifier b1 fp32", 1, MAIN["width"] // 4, (3, 3, 3), "float32"),
+            ("spatial-2 rank, W padding 0", 1, MAIN["width"] // 8 + 6, (3, 3, 0), "bfloat16")]
+
+
+def check_conv3d_1out(dev, gen) -> dict:
+    """K6 at every case of ``K6_CASES`` against its twin, with its time,
+    its two bounds (the products at the fp32 FMA peak, and at the bf16
+    tensor peak), the twin's time and ``F.conv3d``'s (cuDNN on the rounded
+    operands: what the classifier called before K6, the yardstick only);
+    the row is the first case's, every case under ``cases``."""
+    import torch
+    import torch.nn.functional as F
+
+    from foundationstereo_torch.ops import kernels
+
+    C, K = 14, 7
+    D, H = MAIN["max_disp"] // 4, MAIN["height"] // 4
+    row = None
+    for name, b, w, pad, dtype in K6_CASES:
+        dtype = getattr(torch, dtype)
+        x = torch.rand(b, C, D, H, w, device=dev, generator=gen) * 2 - 1
+        wt = ((torch.rand(1, C, K, K, K, device=dev, generator=gen) * 2 - 1)
+              / math.sqrt(C * K ** 3)).to(dtype)
+        bias = (0.1 * (torch.rand(1, device=dev, generator=gen) * 2 - 1)).to(dtype)
+        out = kernels.conv3d_1out(x, wt, bias, list(pad))
+        shape = tuple(out.shape)
+        grid = k6_launched(shape)
+        ref = kernels.conv3d_1out_plain(x, wt, bias, pad)
+        torch.cuda.synchronize()
+        err, mean_err, ok = conv3d_1out_errors(out, ref)
+        ms = cuda_ms(lambda: kernels.conv3d_1out(x, wt, bias, list(pad)), 10)
+        plain_ms = cuda_ms(lambda: kernels.conv3d_1out_plain(x, wt, bias, pad), 2)
+        xl = x.to(dtype)
+        library_ms = cuda_ms(lambda: F.conv3d(xl, wt, bias, padding=pad), 2)
+        del xl
+        outputs = out.numel()
+        flops = 2.0 * C * K ** 3 * outputs
+        nbytes = x.numel() * x.element_size() + (wt.numel() + outputs) * out.element_size()
+        fma_ms, fma_by = bound(nbytes, flops, FP32_FLOPS)
+        tensor_ms, tensor_by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"[kernels] conv3d_1out {name} x {tuple(x.shape)} fp32 -> {shape} {dtype}: max abs err "
+            f"{err:.3g}, mean abs err {mean_err:.3g} (per element "
+            f"{'1 bf16 ulp + 1e-6' if dtype == torch.bfloat16 else '1e-5 max|ref|'} -> {ok}); {ms:.4g} ms, "
+            f"{flops / ms / 1e9:.4g} TF/s; FMA bound {fma_ms:.4g} ms ({fma_by}), tensor bound "
+            f"{tensor_ms:.4g} ms ({tensor_by}); plain {plain_ms:.4g} ms, F.conv3d {library_ms:.4g} ms; "
+            f"grid {grid['blocks']} blocks ({grid['tile']})")
+        check(ok, f"conv3d_1out {name} disagrees with its twin")
+        case = dict(shape=list(x.shape), padding=list(pad), dtype=str(dtype).split(".")[-1],
+                    max_abs_err=err, mean_abs_err=mean_err, ms=ms,
+                    plain_ms=plain_ms, library_ms=library_ms, fma_bound_ms=fma_ms,
+                    tensor_bound_ms=tensor_ms, grid=grid)
+        if row is None:
+            row = dict(name="conv3d_1out", route="cuda",
+                       source="foundationstereo_torch/csrc/conv3d_1out.cu",
+                       replaces="none (the JAX package's XLA conv, models/cost_filter.py Classifier)",
+                       shape=list(x.shape), max_abs_err=err,
+                       max_rel_err=err / float(ref.float().abs().max()), mean_abs_err=mean_err,
+                       tolerance="per element 1 bf16 ulp + 1e-6; mean <= 0.5 mean bf16 ulp; "
+                                 "fp32 max <= 1e-5 max|ref|",
+                       ms=ms, plain_ms=plain_ms, bound_ms=fma_ms, bound_by=f"fp32 FMA, {fma_by}",
+                       tensor_bound_ms=tensor_ms, library_ms=library_ms, grid=grid, cases={})
+        row["cases"][name] = case
+        del x, out, ref
+        torch.cuda.empty_cache()
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phases 4, 5 and 6
 # ---------------------------------------------------------------------------
@@ -919,7 +1028,7 @@ def check_path_fp32(dev, left, right) -> None:
             want = dict.fromkeys(launches, 0)
             want.update(cost_volume_parts=1, disparity_lookup=iters,
                         flash_attention=VIT_CONFIGS[MAIN["vit_size"]]["depth"],
-                        conv3x3=K4_OUTSIDE + iters * K4_PER_ITER)
+                        conv3x3=K4_OUTSIDE + iters * K4_PER_ITER, conv3d_1out=1)
             log(f"[path] fp32 launches {launches}")
             check(launches == want, f"fp32 launch counts {launches}, expected {want}")
     diff = (outs["fp32 kernels + conv3x3"] - outs["fp32 plain"]).abs()
@@ -964,7 +1073,7 @@ def serve(dev, requests: int, profile: bool = False) -> dict:
     want = dict.fromkeys(launches, 0)
     want.update(cost_volume_parts=requests,
                 flash_attention=requests * VIT_CONFIGS[MAIN["vit_size"]]["depth"],
-                disparity_lookup=requests * MAIN["iters"])
+                disparity_lookup=requests * MAIN["iters"], conv3d_1out=requests)
     check(launches == want, f"launch counts {launches}, expected {want}")
     if profile:
         log("[profile] the served configuration (pallas_conv3x3=False: convs through cuDNN):")
@@ -998,7 +1107,8 @@ def demo(dev, profile: bool = False) -> dict:
     requests.append(("panorama", left, right, dict(baseline=DEMO["baseline"], hiera=False)))
 
     per_pass = {"cost_volume_parts": 1, "flash_attention": VIT_CONFIGS[MAIN["vit_size"]]["depth"],
-                "disparity_lookup": MAIN["iters"], "conv3x3": K4_OUTSIDE + MAIN["iters"] * K4_PER_ITER}
+                "disparity_lookup": MAIN["iters"], "conv3x3": K4_OUTSIDE + MAIN["iters"] * K4_PER_ITER,
+                "conv3d_1out": 1}
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     total = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -1392,7 +1502,8 @@ def mesh_phase(dev, requests: int, profile: bool = False) -> tuple[list, dict]:
     want = dict.fromkeys(launches, 0)
     want.update(cost_volume_parts_haloed=requests * MESH_SHARDS,
                 disparity_lookup_shard=requests * MESH_SHARDS * MAIN["iters"],
-                flash_attention_heads=requests * attn.n_batch * attn.n_split * vit["depth"])
+                flash_attention_heads=requests * attn.n_batch * attn.n_split * vit["depth"],
+                conv3d_1out=requests)
     check(launches == want, f"launch counts {launches}, expected {want}")
 
     ref, _, _ = serve_pairs(model, pairs, "unsharded, after")
@@ -2171,7 +2282,7 @@ def op_calls(kernels, dev) -> dict:
 
 
 def pass_launches(h: int, w: int, iters: int, depth: int) -> dict:
-    """K1, K2 and K3 launches of one test-mode pass on a padded h x w pair:
+    """K1, K2, K3 and K6 launches of one test-mode pass on a padded h x w pair:
     the ViT runs K3 in each of its ``depth`` layers only where its input,
     rounded up to multiples of 112 (at most 1344), has over 1024 patches
     of 14 (``models/extractor.py``, ``models/dinov2.py``)."""
@@ -2180,7 +2291,7 @@ def pass_launches(h: int, w: int, iters: int, depth: int) -> dict:
     hr, wr = get_resize_keep_aspect_ratio(h, w, divider=112, max_H=1344, max_W=1344)
     tokens = (hr // 14) * (wr // 14) + 1
     return {"cost_volume_parts": 1, "disparity_lookup": iters,
-            "flash_attention": depth if tokens > 1024 else 0}
+            "flash_attention": depth if tokens > 1024 else 0, "conv3d_1out": 1}
 
 
 def _launched_since(before: dict) -> dict:
@@ -2218,7 +2329,7 @@ def offline_phase(dev, profile: bool = False) -> dict:
     model whose disparity equals the in-memory model's bit for bit.
     Evaluation: fixtures at the KITTI 2015 frame size through the eval CLI
     over three layouts (32 iterations), one ``--hiera 1`` and one ``--scale
-    0.5`` frame, with exact K1/K2/K3 launches per frame, finite summaries and
+    0.5`` frame, with exact K1/K2/K3/K6 launches per frame, finite summaries and
     the JSONL rows. Export: ``make_export`` with a symbolic batch; the loaded
     program at batch 1 and 2 launches what the eager forward launches and
     gives its disparity. Then the host's cost per call of each operator.
@@ -2545,7 +2656,7 @@ def spatial_ranks(backend: str, world: int, want: list, want32, want_secs: list,
     vit = VIT_CONFIGS[MAIN["vit_size"]]
     split = vit["num_heads"] % world == 0
     expect = dict.fromkeys(outs[0]["records"][0]["launches"], 0)
-    expect.update(cost_volume_parts_haloed=1, disparity_lookup_shard=MAIN["iters"])
+    expect.update(cost_volume_parts_haloed=1, disparity_lookup_shard=MAIN["iters"], conv3d_1out=1)
     expect["flash_attention_heads" if split else "flash_attention"] = vit["depth"]
     flash = dict(expect, flash_attention=vit["depth"], flash_attention_heads=0)
     blocks = kernels.flash_attention_blocks(VIT_TOKENS, 2 * vit["num_heads"] // (world if split else 1))
@@ -2755,7 +2866,7 @@ def main() -> int:
     if "kernels" in phases:
         gen = torch.Generator(device=dev).manual_seed(0)
         for fn in (check_cost_volume, check_lookup, check_attention, check_attention_train_shape,
-                   check_conv3x3):
+                   check_conv3x3, check_conv3d_1out):
             rows.append(fn(dev, gen))
             torch.cuda.empty_cache()
     if "path" in phases:

@@ -19,7 +19,9 @@ from foundationstereo_torch.models.layers import (
     FeatureAtt,
     ResnetBasicBlock,
 )
+from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops.resize import resize_dhw
+from foundationstereo_torch.parallel import spatial
 
 
 class Hourglass(nn.Module):
@@ -112,14 +114,35 @@ class CorrStem(nn.Sequential):
         return x
 
 
+def _conv3d_1out(x, weight, bias, stride, padding, dilation, groups):
+    """``F.conv3d(...)[:, 0]`` of a one-channel conv through K6
+    (``ops/kernels.py:conv3d_1out``), in ``spatial.conv``'s form."""
+    if tuple(stride) != (1, 1, 1) or tuple(dilation) != (1, 1, 1) or groups != 1:
+        raise ValueError(f"K6 takes stride 1, no dilation, no groups: {stride} {dilation} {groups}")
+    return kernels.conv3d_1out(x, weight, bias, list(padding))
+
+
 class Classifier(nn.Sequential):
-    """Initial-disparity head: (B, C, D, H, W) -> (B, D, H, W) logits."""
+    """Initial-disparity head: (B, C, D, H, W) -> (B, D, H, W) logits.
+
+    Where ``k6_on`` (the model's ``forward`` sets it once per call: on
+    wherever its kernels run, ``kernel_mode`` not "plain") the last conv
+    (C/2 -> 1, 7x7x7) runs through K6, which reads the fp32 volume in
+    place, rounds it to ``cdt`` and computes the one channel only; otherwise
+    through ``F.conv3d``, which has a backward."""
 
     def __init__(self, volume_dim=28, cdt=torch.float32):
         c = volume_dim // 2
         super().__init__(BasicConv(volume_dim, c, 3, 1, 1, is_3d=True, cdt=cdt),
                          ResnetBasicBlock(c, is_3d=True, cdt=cdt),
                          Conv3d(c, 1, 7, 1, 3, cdt=cdt))
+        self.k6_on = False
 
     def forward(self, x):
-        return super().forward(x)[:, 0]
+        if not self.k6_on:
+            return super().forward(x)[:, 0]
+        x = self[1](self[0](x))
+        conv = self[2]
+        x = x if x.stride(-1) == 1 else x.contiguous()
+        return spatial.conv(_conv3d_1out, x, conv.weight.to(conv.cdt), conv.bias.to(conv.cdt),
+                            conv.stride, conv.padding, conv.dilation, conv.groups)

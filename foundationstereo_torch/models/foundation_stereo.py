@@ -14,10 +14,10 @@ upsampling softmax stay fp32; on the kernel path (``use_pallas``) the
 pyramids are stored in bf16 when ``bf16_pyramids`` is set (the lookup
 accumulates in fp32), on the plain path in fp32.
 
-With ``use_pallas`` the cost-volume build and the lookup go through the
-kernel wrappers in ``ops/kernels.py`` (CUDA kernels on the card, their
-plain twins on the CPU); without it the model calls the plain twins
-directly. With ``use_pallas`` and ``pallas_conv3x3`` the constructor also
+With ``use_pallas`` the cost-volume build, the lookup and the classifier's
+last conv (K6) go through the kernel wrappers in ``ops/kernels.py`` (CUDA
+kernels on the card, their plain twins on the CPU); without it the model
+calls the plain twins directly, and the classifier ``F.conv3d``. With ``use_pallas`` and ``pallas_conv3x3`` the constructor also
 marks the eligible 3x3 convs (``models/layers.py:route_conv3x3``), which
 then run through the conv kernel. Nothing else changes between the paths.
 
@@ -28,7 +28,8 @@ With ``train=True`` (the model in ``train()`` mode) batch norm takes the
 batch's statistics and the disparity transformer's dropouts draw from the
 enclosing ``layers.dropout_generator``; the cost-volume build and the lookup
 run their differentiable twins with fp32 pyramids, the 3x3 convs
-``F.conv2d``, and only the frozen ViT's attention runs its kernel, under
+``F.conv2d``, the classifier's last conv ``F.conv3d``, and only the frozen
+ViT's attention runs its kernel, under
 ``no_grad``. ``forward`` decides this once per call, from ``train`` or
 grad mode (``differentiable``): the kernels have no backward, so an
 eval-mode forward that takes gradients takes the same route (as the JAX
@@ -56,7 +57,8 @@ the JAX package places ``shard_spatial``: ``feature``, ``stem_2``,
 rank takes its columns of the left features, ``stem_2x`` and the context
 lists, builds its columns of the cost volume against the full right
 features (K5's build, ``kernels.cost_volume_parts_haloed``, with its x
-offset), runs CorrStem, FeatureAtt, the hourglass, the classifier, the
+offset), runs CorrStem, FeatureAtt, the hourglass, the classifier (K6 on
+the rank's haloed columns), the
 pyramids, every refinement step (K5's lookup, ``kernels.
 disparity_lookup_shard``) and the upsampling head on them with halo
 exchanges, and the outputs are gathered along W, so every rank returns the
@@ -226,6 +228,7 @@ class FoundationStereo(nn.Module):
         k4_on = not differentiable and (mesh is None or mesh.size == 1)
         for m in self._k4_convs:
             m.k4_on = k4_on
+        self.classifier.k6_on = mode != "plain"     # K6 wherever the kernels run
         remat_filter = train and grad and cfg.remat_filter
         remat_refine = train and grad and cfg.remat_refine
         remat_head = grad and not test_mode and cfg.scan_upsample

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels: build, load, wrappers, launch counts.
 
-Four CUDA C++ sources under ``foundationstereo_torch/csrc``, seven wrappers:
+Five CUDA C++ sources under ``foundationstereo_torch/csrc``, eight wrappers:
 
 =========================  =======================  ====================================================
 wrapper                    source                   TPU kernel it replaces
@@ -14,6 +14,8 @@ disparity_lookup_shard     csrc/lookup.cu           ops/pallas_kernels.py:dispar
 flash_attention            csrc/flash_attention.cu  models/dinov2.py:flash_vit_attention (K3)
 flash_attention_heads      csrc/flash_attention.cu  models/dinov2.py:flash_vit_attention_sharded (K3s)
 conv3x3                    csrc/conv3x3.cu          ops/conv3x3.py:conv3x3_pallas (K4)
+conv3d_1out                csrc/conv3d_1out.cu      none: the JAX package leaves the classifier's last
+                                                    conv (C -> 1, 7x7x7) to XLA (K6)
 =========================  =======================  ====================================================
 
 The ``_haloed``, ``_shard`` and ``_heads`` wrappers each run one shard of
@@ -40,9 +42,10 @@ raises, on either device; the model's differentiable route calls the
 twins directly (``models/foundation_stereo.py:kernel_mode``).
 
 Each C entry point reports the grid it launched (``COST_VOLUME_LAUNCHED``,
-``LOOKUP_LAUNCHED``, ``FLASH_ATTENTION_LAUNCHED``, ``CONV3X3_LAUNCHED``);
-``cost_volume_grid``, ``lookup_grid``, ``flash_attention_blocks`` and
-``conv3x3_blocks`` give the same from the shapes, for the checks.
+``LOOKUP_LAUNCHED``, ``FLASH_ATTENTION_LAUNCHED``, ``CONV3X3_LAUNCHED``,
+``CONV3D_1OUT_LAUNCHED``); ``cost_volume_grid``, ``lookup_grid``,
+``flash_attention_blocks``, ``conv3x3_blocks`` and ``conv3d_1out_grid`` give
+the same from the shapes, for the checks.
 """
 
 from __future__ import annotations
@@ -72,6 +75,7 @@ SOURCES = {
     "disparity_lookup": "lookup.cu",
     "flash_attention": "flash_attention.cu",
     "conv3x3": "conv3x3.cu",
+    "conv3d_1out": "conv3d_1out.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -83,13 +87,15 @@ ENTRY_POINTS = {
     "disparity_lookup": ("disparity_lookup", [_P] * 4 + [_I, _P, _P] + [_I] * 8 + [_P, _P]),
     "flash_attention": ("flash_attention", [_P, _P] + [_I] * 5 + [ctypes.c_float, _I, _P, _P]),
     "conv3x3": ("conv3x3", [_P, _P, _P, _P, _I, _I] + [_L] * 6 + [_I] * 9 + [_P, _P]),
+    "conv3d_1out": ("conv3d_1out", [_P] * 4 + [_I] * 5 + [_L] * 4 + [_I] * 5 + [_P, _P]),
 }
 
 # Launches per wrapper since the last reset_launches(); counted only where a
 # wrapper launches its kernel.
 LAUNCHES = {name: 0 for name in ("cost_volume_parts", "cost_volume_parts_haloed",
                                  "disparity_lookup", "disparity_lookup_shard",
-                                 "flash_attention", "flash_attention_heads", "conv3x3")}
+                                 "flash_attention", "flash_attention_heads", "conv3x3",
+                                 "conv3d_1out")}
 
 # The last cost-volume launch (K1 or K5's build) as its C entry point made
 # it: the grid (x, y, z) and a block's tile (threads, columns, disparities).
@@ -103,6 +109,9 @@ CONV3X3_LAUNCHED: dict = {}
 # The last flash-attention launch (K3 or K3s) as its C entry point made it:
 # the grid (x, y, z) and a block's tile (query rows, keys per tile, threads).
 FLASH_ATTENTION_LAUNCHED: dict = {}
+# The last conv3d_1out launch as its C entry point made it: the grid (x, y,
+# z), the threads per block and a block's output tile (depths, rows, columns).
+CONV3D_1OUT_LAUNCHED: dict = {}
 
 _fns: dict = {}   # name -> the loaded C entry point fs_<name>
 _lock = threading.Lock()
@@ -644,6 +653,79 @@ def _conv3x3_fake(x, weight, bias=None, packed=None):
 
 
 # ---------------------------------------------------------------------------
+# K6: 3D convolution to one output channel, stride 1
+# ---------------------------------------------------------------------------
+
+
+def conv3d_1out_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+                      padding) -> torch.Tensor:
+    """Plain twin of the one-channel 3D conv kernel: ``F.conv3d`` in fp32 on
+    the operands rounded to the weight's dtype (the compute dtype), rounded
+    once to it. x (B, C, D, H, W), weight (1, C, K, K, K), bias (1,) or None
+    -> (B, D_out, H_out, W_out)."""
+    dt = weight.dtype
+    b = None if bias is None else bias.float()
+    return F.conv3d(x.to(dt).float(), weight.float(), b, padding=tuple(padding))[:, 0].to(dt)
+
+
+def _conv3d_1out_shape(x, weight, padding) -> tuple:
+    k = weight.shape[-1]
+    return (x.shape[0],) + tuple(n + 2 * p - k + 1 for n, p in zip(x.shape[2:], padding))
+
+
+def _conv3d_1out_fake(x, weight, bias, padding):
+    return x.new_empty(_conv3d_1out_shape(x, weight, padding), dtype=weight.dtype)
+
+
+# The kernel's output tile per block (depths, rows, columns), and the kernel
+# sizes it has an instantiation for.
+CONV3D_1OUT_TILE, CONV3D_1OUT_SIZES = (8, 16, 64), (3, 5, 7)
+
+
+def conv3d_1out_grid(b: int, d: int, h: int, w: int) -> tuple[int, int, int]:
+    """The kernel's grid for (B, D, H, W) outputs: (column tiles, row tiles,
+    depth tiles x B)."""
+    td, th, tw = CONV3D_1OUT_TILE
+    return -(-w // tw), -(-h // th), -(-d // td) * b
+
+
+def _conv3d_1out_cuda(x, weight, bias, padding):
+    """Stride-1 3D convolution to one output channel with fp32 products and
+    sums: x (B, C, D, H, W) in float32 with unit stride along W (read in
+    place through its other strides, rounded to the weight's dtype as it is
+    loaded); weight (1, C, K, K, K) with K 3, 5 or 7 and bias (1,)
+    or None in the compute dtype, float32 or bfloat16; zero padding (pd, ph,
+    pw). Returns (B, D_out, H_out, W_out) in the weight's dtype, the
+    classifier's ``conv(x)[:, 0]``."""
+    _forward_only("conv3d_1out", x, weight, bias)
+    _one_device(x, weight, *([] if bias is None else [bias]))
+    _require(x.ndim == 5 and x.dtype == torch.float32 and x.stride(-1) == 1,
+             f"x {tuple(x.shape)} {x.dtype}: want (B, C, D, H, W), float32, unit stride along W")
+    c, k = x.shape[1], weight.shape[-1]
+    _require(tuple(weight.shape) == (1, c, k, k, k) and k in CONV3D_1OUT_SIZES
+             and weight.dtype in _FLOATS,
+             f"weight {tuple(weight.shape)} {weight.dtype}: want (1, {c}, K, K, K), K in "
+             f"{CONV3D_1OUT_SIZES}, float32 or bfloat16")
+    _require(bias is None or (tuple(bias.shape) == (1,) and bias.dtype == weight.dtype),
+             "bias must be (1,) in the weight's dtype")
+    _require(len(padding) == 3 and all(0 <= p < k for p in padding), f"padding {padding}")
+    shape = _conv3d_1out_shape(x, weight, padding)
+    _require(min(shape) >= 1, f"no output: {shape}")
+    gx, gy, gz = conv3d_1out_grid(*shape)
+    _require(gy <= 65535 and gz <= 65535, f"grid {(gx, gy, gz)}: at most 65535 along y and z")
+    weight = weight.contiguous()
+    out = torch.empty(shape, device=x.device, dtype=weight.dtype)
+    launched = (ctypes.c_int * 7)()
+    _launch("conv3d_1out", "conv3d_1out", x.device,
+            x.data_ptr(), weight.data_ptr(), 0 if bias is None else bias.data_ptr(),
+            out.data_ptr(), x.shape[0], c, *x.shape[2:], *x.stride()[:4], k, *padding,
+            int(weight.dtype == torch.bfloat16), launched)
+    CONV3D_1OUT_LAUNCHED.update(grid=tuple(launched[:3]), threads=launched[3],
+                                tile=tuple(launched[4:]))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The operators: one path in eager mode and under torch.export
 # ---------------------------------------------------------------------------
 
@@ -713,3 +795,6 @@ flash_attention_heads = _define(
 conv3x3 = _define(
     "conv3x3(Tensor x, Tensor weight, Tensor? bias=None, Tensor? packed=None) -> Tensor",
     _conv3x3_plain_op, _conv3x3_cuda, _conv3x3_fake)
+conv3d_1out = _define(
+    "conv3d_1out(Tensor x, Tensor weight, Tensor? bias, int[] padding) -> Tensor",
+    conv3d_1out_plain, _conv3d_1out_cuda, _conv3d_1out_fake)

@@ -10,8 +10,9 @@ loaded back).
   are the plain twins the eager forward runs).
 * The exported graph holds the kernels as ``fs::`` operator nodes: one cost
   volume per pass, one lookup per iteration, one 3x3 conv per routed call,
-  the counts of the eager forward's calls (counted as
-  ``tests/test_torch_forward.py:_count_calls`` does).
+  one classifier conv (K6) per pass, the counts of the eager forward's calls
+  (counted as ``tests/test_torch_forward.py:_count_calls`` does); a
+  train-mode forward calls no K6.
 * The manifest has the JAX package's keys and values.
 * ``PackedWeights`` builds the derived weight without its cache while
   ``torch.export`` traces, and caches it in eager mode.
@@ -31,14 +32,14 @@ import torch
 from foundationstereo_torch.config import ModelConfig
 from foundationstereo_torch.inference.export import export_program, load_exported
 from foundationstereo_torch.models.foundation_stereo import FoundationStereo
-from foundationstereo_torch.models.layers import PackedWeights
+from foundationstereo_torch.models.layers import PackedWeights, dropout_generator
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.scripts import make_export
 from test_torch_forward import _count_calls
 
 CFG = ModelConfig(max_disp=64, vit_size="vits", mixed_precision=False, bf16_pyramids=False)
 H, W, ITERS = 64, 96, 2
-OPS = ("cost_volume_parts", "disparity_lookup", "flash_attention", "conv3x3")
+OPS = ("cost_volume_parts", "disparity_lookup", "flash_attention", "conv3x3", "conv3d_1out")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -95,6 +96,36 @@ def test_graph_holds_the_eager_calls(exported, monkeypatch):
     assert calls["cost_volume_parts"] == 1 and calls["disparity_lookup"] == ITERS
     assert (calls["conv3x3"] > 0) == model.cfg.pallas_conv3x3
     assert ops == Counter({k: v for k, v in calls.items() if v})
+
+
+def test_graph_holds_one_classifier_conv_node(exported):
+    """The classifier's last conv is one ``fs::conv3d_1out`` node per pass,
+    with the export's batch (symbolic or 1) and the logits' shape."""
+    _, program, _, ops, batches = exported
+    assert ops["conv3d_1out"] == 1
+    node = next(n for n in program.graph.nodes if str(n.target).startswith("fs.conv3d_1out"))
+    val = node.meta["val"]
+    assert isinstance(val.shape[0], torch.SymInt) == (len(batches) == 2)
+    assert tuple(val.shape[1:]) == (CFG.max_disp // 4, H // 4, W // 4) and val.dtype == torch.float32
+
+
+def test_train_forward_calls_no_classifier_kernel(monkeypatch):
+    """A train-mode forward (and an eval forward under grad) takes
+    ``F.conv3d`` for the classifier's last conv: no K6 call; the served
+    forward one."""
+    model = FoundationStereo(CFG, device="cpu", seed=0)
+    calls = _count_calls(monkeypatch, kernels, ["conv3d_1out"])
+    left, right = _pair(1, 3)
+    model.train()
+    with dropout_generator(torch.Generator().manual_seed(0)):
+        init_disp, preds = model(left, right, iters=1, test_mode=False, train=True)
+    assert init_disp.requires_grad and calls["conv3d_1out"] == 0
+    model.eval()
+    init_disp, _ = model(left, right, iters=1, test_mode=False)
+    assert init_disp.requires_grad and calls["conv3d_1out"] == 0
+    with torch.no_grad():
+        model(left, right, iters=1, test_mode=True)
+    assert calls["conv3d_1out"] == 1
 
 
 def test_manifest_has_the_jax_keys(exported):
@@ -160,6 +191,32 @@ def test_shape_functions_keep_the_batch_symbolic():
         assert want.is_contiguous()
     with pytest.raises(ValueError, match="no backward"):
         kernels.conv3x3(args[4].requires_grad_(), args[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_1out_shape_function(dtype):
+    """K6's shape function: (B, D_out, H_out, W_out) in the weight's dtype,
+    the batch symbolic under export, with the padding (3, 3, 3) and (3, 3,
+    0); and the operator refuses a weight that needs a backward."""
+    rng = np.random.default_rng(1)
+
+    class Calls(torch.nn.Module):
+        def forward(self, x, w):
+            return kernels.conv3d_1out(x, w, None, [3, 3, 3]), kernels.conv3d_1out(x, w, None, [3, 3, 0])
+
+    x = torch.from_numpy(rng.standard_normal((2, 3, 5, 6, 9)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((1, 3, 7, 7, 7)).astype(np.float32)).to(dtype)
+    b = torch.export.Dim("b", min=1, max=64)
+    with torch.no_grad():
+        program = torch.export.export(Calls(), (x, w), dynamic_shapes=({0: b}, None))
+        outs = Calls()(x, w)
+    assert [tuple(o.shape) for o in outs] == [(2, 5, 6, 9), (2, 5, 6, 3)]
+    fake = [n.meta["val"] for n in program.graph.output_node().args[0]]
+    for got, want in zip(fake, outs):
+        assert isinstance(got.shape[0], torch.SymInt)
+        assert tuple(got.shape[1:]) == tuple(want.shape[1:]) and got.dtype == want.dtype == dtype
+    with pytest.raises(ValueError, match="no backward"):
+        kernels.conv3d_1out(x, w.float().requires_grad_(), None, [3, 3, 3])
 
 
 def test_make_export_fails_without_cuda(tmp_path):

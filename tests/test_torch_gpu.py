@@ -316,11 +316,14 @@ def test_kernels_refuse_inputs_that_need_a_backward(cuda):
     conv_x = torch.zeros(1, 128, 4, 16, device=cuda)
     w = torch.zeros(64, 128, 3, 3, device=cuda, requires_grad=True)
     qkv = torch.zeros(1, 70, 3, 2, 64, device=cuda, requires_grad=True)
+    vol = torch.zeros(1, 2, 4, 5, 6, device=cuda)
+    w6 = torch.zeros(1, 2, 3, 3, 3, device=cuda, requires_grad=True)
     calls = [lambda: kernels.cost_volume_parts(x, x, rp, 8, 8),
              lambda: kernels.disparity_lookup(geo, corr, disp, 1),
              lambda: kernels.conv3x3(conv_x, w),
              lambda: kernels.flash_attention(qkv, 0.125),
-             lambda: kernels.flash_attention_heads(qkv, 0.125, 0, 1)]
+             lambda: kernels.flash_attention_heads(qkv, 0.125, 0, 1),
+             lambda: kernels.conv3d_1out(vol, w6, None, [1, 1, 1])]
     for call in calls:
         with pytest.raises(ValueError, match="no backward"):
             call()
@@ -333,6 +336,7 @@ def test_kernels_refuse_inputs_that_need_a_backward(cuda):
     with torch.no_grad():
         model(left, left.flip(2), iters=1, test_mode=False)
     assert kernels.LAUNCHES["cost_volume_parts"] == 1 and kernels.LAUNCHES["conv3x3"] > 0
+    assert kernels.LAUNCHES["conv3d_1out"] == 1
     for train in (False, True):     # at 64x96 the ViT's few tokens take dense attention
         model.train(train)
         kernels.reset_launches()
@@ -447,6 +451,72 @@ def test_conv3x3_errors_raise_and_do_not_fall_back(cuda):
     with pytest.raises(RuntimeError, match="CUDA error"):
         kernels._check("conv3x3", err)
     assert kernels.LAUNCHES["conv3x3"] == 0
+
+
+def _k6_inputs(cuda, seed, b, c, k, dhw, dtype):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = _uniform(g, b, c, *dhw, device=cuda)
+    w = (_uniform(g, 1, c, k, k, k, device=cuda) / math.sqrt(c * k ** 3)).to(dtype)
+    return x, w, (0.1 * _uniform(g, 1, device=cuda)).to(dtype)
+
+
+def _assert_k6_close(out, ref):
+    """Both sum the same exact products in fp32, maybe in another order,
+    and round once: fp32 within 1e-5 max |ref|; bf16 within 1 bf16 ulp of
+    |ref| + 1e-6 per element, and the mean error within half the mean bf16
+    ulp of |ref| (a skipped tap, row or channel moves it by far more)."""
+    o, r = out.float(), ref.float()
+    diff = (o - r).abs()
+    if out.dtype == torch.float32:
+        assert float(diff.max()) <= 1e-5 * float(r.abs().max()), float(diff.max())
+        return
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp_min(2.0 ** -126))) - 7)
+    assert bool((diff <= ulp + 1e-6).all()), float((diff - ulp).max())
+    assert float(diff.mean()) <= 0.5 * float(ulp.mean()), float(diff.mean())
+
+
+@pytest.mark.parametrize("b,c,k,dhw,pad,dtype", [
+    (1, 14, 7, (104, 184, 320), (3, 3, 3), torch.bfloat16),    # the classifier
+    (4, 14, 7, (104, 184, 320), (3, 3, 3), torch.bfloat16),    # at batch 4
+    (2, 5, 7, (11, 19, 70), (3, 3, 3), torch.bfloat16),        # ragged tiles
+    (1, 14, 7, (13, 21, 80), (3, 3, 3), torch.float32),        # fp32
+    (1, 14, 7, (9, 17, 86), (3, 3, 0), torch.bfloat16),        # a rank's halo
+    (1, 3, 5, (6, 9, 30), (2, 1, 0), torch.float32),           # K = 5
+    (2, 4, 3, (5, 7, 66), (1, 1, 1), torch.bfloat16),          # K = 3
+])
+def test_conv3d_1out_kernel(cuda, b, c, k, dhw, pad, dtype):
+    """K6 against its twin (cuDNN's conv in fp32, TF32 off, on the rounded
+    operands): the classifier's shape at batch 1 and 4 in bf16 on the fp32
+    volume, ragged tiles, fp32, W padding 0, the other kernel sizes."""
+    x, w, bias = _k6_inputs(cuda, 31, b, c, k, dhw, dtype)
+    kernels.reset_launches()
+    out = kernels.conv3d_1out(x, w, bias, list(pad))
+    want_shape = (b,) + tuple(n + 2 * p - k + 1 for n, p in zip(dhw, pad))
+    assert out.dtype == dtype and tuple(out.shape) == want_shape
+    assert kernels.LAUNCHES["conv3d_1out"] == 1
+    assert kernels.CONV3D_1OUT_LAUNCHED["grid"] == kernels.conv3d_1out_grid(*want_shape)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _assert_k6_close(out, kernels.conv3d_1out_plain(x, w, bias, pad))
+        if b == 2:          # no bias, and a view strided along D and H (W's stride 1)
+            vol = x[:, :, 1:, 2:]
+            _assert_k6_close(kernels.conv3d_1out(vol, w, None, list(pad)),
+                             kernels.conv3d_1out_plain(vol, w, None, pad))
+
+
+def test_conv3d_1out_errors_raise_and_do_not_fall_back(cuda):
+    x, w, bias = _k6_inputs(cuda, 32, 1, 4, 7, (5, 6, 7), torch.bfloat16)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="unit stride"):
+        kernels.conv3d_1out(x.transpose(3, 4), w, bias, [3, 3, 3])
+    with pytest.raises(ValueError, match="float32"):
+        kernels.conv3d_1out(x.bfloat16(), w, bias, [3, 3, 3])
+    with pytest.raises(ValueError, match="K in"):
+        kernels.conv3d_1out(x, torch.zeros(1, 4, 9, 9, 9, device=cuda), None, [3, 3, 3])
+    with pytest.raises(ValueError, match="bias"):
+        kernels.conv3d_1out(x, w, bias.float(), [3, 3, 3])
+    with pytest.raises(ValueError, match="padding"):
+        kernels.conv3d_1out(x, w, bias, [3, 3])
+    assert kernels.LAUNCHES["conv3d_1out"] == 0
 
 
 @pytest.mark.parametrize("mixed_precision", [False, True])
@@ -651,7 +721,8 @@ def test_model_under_a_one_card_mesh(cuda):
         got = model(left, right, iters=2, test_mode=True)
     assert kernels.LAUNCHES == {"cost_volume_parts": 0, "cost_volume_parts_haloed": 4,
                                 "disparity_lookup": 0, "disparity_lookup_shard": 8,
-                                "flash_attention": 0, "flash_attention_heads": 0, "conv3x3": 0}
+                                "flash_attention": 0, "flash_attention_heads": 0, "conv3x3": 0,
+                                "conv3d_1out": 1}
     model_ref = FoundationStereo(cfg.replace(pallas_conv3x3=False), device=cuda, seed=0)
     with torch.no_grad():
         want = model_ref(left, right, iters=2, test_mode=True)

@@ -15,10 +15,13 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 
 from foundationstereo_torch.models import dinov2 as tdino
+from foundationstereo_torch.models.cost_filter import Classifier
 from foundationstereo_torch.ops import cost_volume as tcv
 from foundationstereo_torch.ops import kernels
 from foundationstereo_torch.ops import sampler as tsam
@@ -175,7 +178,86 @@ def test_flash_attention_blocks_at_the_main_shapes(pairs, blocks):
 def test_kernel_sources_and_build_paths():
     for src in kernels.SOURCES.values():
         text = (kernels.CSRC / src).read_text()
-        assert "Replaces the TPU kernel" in text and "extern \"C\"" in text
+        assert ("Replaces the TPU kernel" in text or "Replaces no TPU kernel" in text)
+        assert "extern \"C\"" in text
     paths = {kernels._lib_path(src) for src in kernels.SOURCES.values()}
-    assert len(paths) == len(kernels.SOURCES) == 4
+    assert len(paths) == len(kernels.SOURCES) == 5
     assert all(p.parent == kernels.BUILD_DIR for p in paths)
+
+
+def _k6_inputs(rng, dt, b=2, c=5, dhw=(6, 9, 11)):
+    x = torch.from_numpy(rng.uniform(-1, 1, (b, c) + dhw).astype(np.float32))
+    w = torch.from_numpy((rng.uniform(-1, 1, (1, c, 7, 7, 7)) / math.sqrt(c * 343)).astype(np.float32))
+    bias = torch.from_numpy(rng.uniform(-0.1, 0.1, (1,)).astype(np.float32))
+    return x, w.to(dt), bias.to(dt)
+
+
+@pytest.mark.parametrize("padding", [(3, 3, 3), (3, 3, 0)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_conv3d_1out_twin_is_the_conv_on_rounded_operands(rng, dtype, padding):
+    """K6's operator on the CPU: ``F.conv3d`` in fp32 on the operands rounded
+    to the weight's dtype, rounded once (the input may come in fp32 and is
+    rounded as it is read), the classifier's ``[:, 0]``; within 1 bf16 ulp of
+    the bf16 ``F.conv3d`` the classifier ran before, and of the JAX
+    package's XLA conv on the same rounded operands (1e-5 in fp32)."""
+    dt = getattr(torch, dtype)
+    x, w, bias = _k6_inputs(rng, dt)
+    kernels.reset_launches()
+    got = kernels.conv3d_1out(x, w, bias, list(padding))
+    want = F.conv3d(x.to(dt).float(), w.float(), bias.float(), padding=padding)[:, 0].to(dt)
+    assert got.dtype == dt and got.shape == want.shape and torch.equal(got, want)
+    assert not any(kernels.LAUNCHES.values())
+    old = F.conv3d(x.to(dt), w, bias, padding=padding)[:, 0]
+    tol = TOL32 if dtype == "float32" else dict(rtol=2.0 ** -8, atol=1e-6)
+    torch.testing.assert_close(got.float(), old.float(), **tol)
+    xj = jnp.asarray(x.to(dt).float().numpy())
+    wj = jnp.asarray(w.float().numpy())
+    ref = jax.lax.conv_general_dilated(xj, wj, (1, 1, 1), [(p, p) for p in padding],
+                                       precision=jax.lax.Precision.HIGHEST)[:, 0]
+    ref = torch.from_numpy(np.array(ref + float(bias.float()[0]))).to(dt).float()
+    np.testing.assert_allclose(got.float().numpy(), ref.numpy(), **tol)
+
+
+def test_classifier_routes_its_last_conv_and_keeps_f_conv3d_under_grad(rng, monkeypatch):
+    """A ``Classifier`` with ``k6_on`` calls K6 once and gives the logits of
+    one without; the gradient route (``k6_on`` off, as the model's forward
+    sets it wherever gradients flow) calls no K6, and its gradient to
+    ``classifier.2.weight`` is ``F.conv3d``'s; K6 refuses a weight that
+    needs a backward."""
+    calls = []
+    op = kernels.conv3d_1out
+    monkeypatch.setattr(kernels, "conv3d_1out", lambda *a: calls.append(a[3]) or op(*a))
+    clf = Classifier(28, torch.bfloat16).eval()
+    for p in clf.parameters():
+        p.data.uniform_(-0.1, 0.1, generator=torch.Generator().manual_seed(3))
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 28, 6, 8, 10)).astype(np.float32))
+    with torch.no_grad():
+        plain = clf(x)
+        clf.k6_on = True
+        kernel = clf(x)
+        clf.k6_on = False
+    assert calls == [[3, 3, 3]] and kernel.shape == (1, 6, 8, 10) and kernel.dtype == plain.dtype
+    torch.testing.assert_close(kernel.float(), plain.float(), rtol=2.0 ** -8, atol=1e-6)
+    calls.clear()
+    g = torch.from_numpy(rng.standard_normal((1, 6, 8, 10)).astype(np.float32))
+    (clf(x).float() * g).sum().backward()
+    got = clf[2].weight.grad.clone()
+    clf.zero_grad()
+    conv = clf[2]
+    y = F.conv3d(clf[1](clf[0](x)).to(torch.bfloat16), conv.weight.to(torch.bfloat16),
+                 conv.bias.to(torch.bfloat16), padding=3)[:, 0]
+    (y.float() * g).sum().backward()
+    assert calls == [] and torch.equal(got, conv.weight.grad)
+    clf.k6_on = True
+    with pytest.raises(ValueError, match="no backward"):
+        clf(x)
+
+
+def test_conv3d_1out_grid_at_the_main_shapes():
+    """K6's grid at the classifier's (B, 104, 184, 320) outputs: 5 column
+    tiles of 64, 12 row tiles of 16 (the last of 8 rows), 13 depth tiles of
+    8 per image; a spatial-2 rank's 160 columns take 3 column tiles."""
+    assert kernels.CONV3D_1OUT_TILE == (8, 16, 64)
+    assert kernels.conv3d_1out_grid(1, 104, 184, 320) == (5, 12, 13)
+    assert kernels.conv3d_1out_grid(4, 104, 184, 320) == (5, 12, 52)
+    assert kernels.conv3d_1out_grid(1, 104, 184, 160) == (3, 12, 13)

@@ -553,6 +553,7 @@ def test_forward_on_two_ranks_matches_the_unpartitioned_forward(two_ranks):
         assert float((g["forward"] - ref["forward"]).abs().max()) <= 1e-4
         assert g["calls"]["cost_volume_parts_haloed"] == 1
         assert g["calls"]["disparity_lookup_shard"] == FWD_ITERS
+        assert g["calls"]["conv3d_1out"] == 1
         for name in ("cost_volume_parts", "disparity_lookup", "conv3x3", "flash_attention_heads"):
             assert g["calls"][name] == 0, name
 
