@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 
 import torch
 
@@ -48,23 +49,27 @@ def pairs_control(cell: dict, seed: int, device, overrides: dict | None = None) 
 
 
 def train_control(cell: dict, seed: int, device, faults: list[str],
-                  overrides: dict | None = None) -> dict:
+                  overrides: dict | None = None, log=lambda msg: None) -> dict:
     """The training cell's numbers for a faulty reference in the program's
-    place against the fp32 reference over the steps set-up takes, by fault:
-    ``fp8`` (the reference in fp8) or ``half_batch`` (each step on the
-    first half of its batch, the mean taken over it)."""
-    from portbench.training import Training, reference_steps, step_numbers
+    place against the fp32 reference over the steps set-up takes (the first
+    step's forward outputs, its judged blocks and the steps' numbers), by
+    fault: ``fp8`` (the reference in fp8) or ``half_batch`` (each step on
+    the first half of its batch, the mean taken over it). ``log`` receives
+    each judged block's gap."""
+    from portbench.training import Training, forward_numbers, reference_steps, step_numbers
 
     kind = Training(cell, seed, device, overrides)
     pool = traffic.train_batches(kind.mix, seed, device, list(kind.recipe["loss"]))
-    ref = reference_steps(kind.recipe, pool, device, kind.weights_seed)
-    out = {}
-    for fault in faults:
-        bad = reference_steps(kind.recipe, pool, device, kind.weights_seed,
-                              cdt=FP8 if fault == "fp8" else torch.float32,
-                              half_batch=fault == "half_batch")
-        out[fault] = step_numbers(bad, ref, lambda msg: None)
-    return out
+    bad = {fault: reference_steps(kind.recipe, pool, device, kind.weights_seed,
+                                  cdt=FP8 if fault == "fp8" else torch.float32,
+                                  half_batch=fault == "half_batch", catch=True)
+           for fault in faults}
+    ref = reference_steps(kind.recipe, pool, device, kind.weights_seed,
+                          judge=tuple(bad[f]["outputs"] for f in faults), log=log)
+    quiet = lambda msg: None  # noqa: E731
+    return {fault: dict(forward_numbers(bad[fault]["outputs"], ref["outputs"], quiet),
+                        **ref["blocks"][i], **step_numbers(bad[fault], ref, quiet))
+            for i, fault in enumerate(faults)}
 
 
 def main(argv=None) -> int:
@@ -83,7 +88,8 @@ def main(argv=None) -> int:
         if cell["mix"]["kind"] == "pairs":
             by_fault = {"fp8": pairs_control(cell, seed, device)}
         else:
-            by_fault = train_control(cell, seed, device, args.fault)
+            by_fault = train_control(cell, seed, device, args.fault,
+                                     log=lambda msg: print(msg, file=sys.stderr, flush=True))
         for fault, numbers in by_fault.items():
             print(json.dumps({"workload": args.workload, "seed": seed, "fault": fault,
                               "numbers": numbers}), flush=True)

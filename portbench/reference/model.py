@@ -286,7 +286,9 @@ class FoundationStereo(nn.Module):
     0-255 with H and W divisible by 32: the (B, H, W) disparity in test
     mode, else the (B, H/4, W/4) initial disparity and the ``iters``
     full-resolution disparities. ``taps``, when a dict, receives the
-    classifier's logits under "classifier"."""
+    classifier's logits under "classifier", the filter stack's input (the
+    cost volume after ``corr_stem``) under "volume" and the context
+    network's outputs, (h, c) per level, under "context"."""
 
     def __init__(self, cfg: dict, cdt: torch.dtype = torch.float32):
         super().__init__()
@@ -325,6 +327,8 @@ class FoundationStereo(nn.Module):
         cat = cast(concat_volume(self.proj_cmb(fl[0]).float(), self.proj_cmb(fr[0]).float(), D), dt)
         comb = self.corr_stem(torch.cat([gwc.float(), cat.float()], dim=1))
         del gwc, cat
+        if taps is not None:
+            taps["volume"] = comb
         comb = self.corr_feature_att(comb, fl[0])
         comb = self.cost_agg(comb, fl)
         logits = self.classifier(comb).float()
@@ -333,6 +337,8 @@ class FoundationStereo(nn.Module):
         init_disp = disparity_regression(torch.softmax(logits, dim=1), D)
 
         cnet = self.cnet(img1, vit)
+        if taps is not None:
+            taps["context"] = [t for pair in cnet for t in pair]
         net = [torch.tanh(h.float()) for h, _ in cnet]
         inp = [torch.relu(c.float()) for _, c in cnet]
         inp = [self.cam(x) * x for x in inp]

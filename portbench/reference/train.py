@@ -99,11 +99,15 @@ class Step:
 
     def __call__(self, batch: dict, iters: int, seed: int) -> dict:
         """One step on ``batch``; ``seed`` seeds the dropout generator.
-        Returns the loss and the clipped gradients as the update used them."""
+        Returns the loss, the clipped gradients as the update used them, and
+        the train-mode forward's outputs (``outputs``, detached: the filter
+        stack's input volume and the context network's outputs)."""
         model = self.model.train()
         gen = torch.Generator(device=batch["left"].device).manual_seed(seed)
+        taps = {}
         with Dropout.drawing(gen):
-            init_disp, preds = model(batch["left"], batch["right"], iters, test_mode=False)
+            init_disp, preds = model(batch["left"], batch["right"], iters, test_mode=False,
+                                     taps=taps)
             loss = composite_loss(self.loss_cfg, init_disp, preds, batch["disparity"],
                                   batch["mask"], batch["label_idx"])
         grads = torch.autograd.grad(loss, list(self.params.values()))
@@ -124,7 +128,10 @@ class Step:
                     p.sub_(lr * (self.m[n] / c1) / ((self.v[n] / c2).sqrt() + self.eps))
             for n, p in self.model.named_parameters():
                 self.ema[n].mul_(self.decay).add_((1.0 - self.decay) * p)
-        return {"loss": float(loss.detach()), "grads": clipped, "grad_norm": float(gnorm)}
+        outputs = {"volume": taps["volume"].detach(),
+                   "context": [t.detach() for t in taps["context"]]}
+        return {"loss": float(loss.detach()), "grads": clipped, "grad_norm": float(gnorm),
+                "outputs": outputs}
 
 
 def dropout_seed(rng) -> int:

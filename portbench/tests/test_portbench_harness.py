@@ -17,7 +17,6 @@ from pathlib import Path
 
 import pytest
 
-from _cells import bench_with_train
 from portbench import counting, spec, trace
 
 HERE = Path(__file__).resolve().parents[1]
@@ -26,14 +25,15 @@ TINY_MODEL = {"vit_size": "vits", "max_disp": 64, "mixed_precision": False}
 TINY = {
     "pairs": {"model": TINY_MODEL, "iters": 2, "mix": {"height": 64, "width": 96, "pool": 3}},
     "train_batches": {"model": dict(TINY_MODEL, train_iters=2),
-                      "mix": {"crop_wh": [96, 64], "max_disparity": 64, "pool": 3}},
+                      "mix": {"crop_wh": [96, 64], "max_disparity": 64, "pool": 3,
+                                              "batch": 2}},
 }
 CONTRACT_KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "foundationstereo_tpu"}
 
 
 def tiny(cell_name: str) -> dict:
-    return TINY[spec.cell(cell_name, bench_with_train())["mix"]["kind"]]
+    return TINY[spec.cell(cell_name)["mix"]["kind"]]
 
 
 # -- found by name, as data -------------------------------------------------------
@@ -98,11 +98,11 @@ def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
 # -- the result line ------------------------------------------------------------
 
 
-@pytest.mark.parametrize("cell", ["pair-vitl-b1", "train-vitl-b2"])
+@pytest.mark.parametrize("cell", ["pair-vitl-b1", "train-vitl-b4"])
 def test_result_line_has_the_contract_keys(cell):
     from portbench import run
 
-    bench = bench_with_train()
+    bench = spec.benchmark()
     result = run.run_cell(cell, 2 ** 31 + 99, 0.1, False, device="cpu", overrides=tiny(cell),
                           bench=bench)
     assert set(result) == CONTRACT_KEYS
