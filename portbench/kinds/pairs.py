@@ -1,6 +1,6 @@
-"""Cells of served stereo pairs: one closed-loop client hands host uint8
-arrays to the program's ``run_pair`` and waits for the disparity on the
-host before it sends the next request.
+"""The kind ``pairs``: cells of served stereo pairs, one closed-loop client
+that hands host uint8 arrays to the program's ``run_pair`` and waits for the
+disparity on the host before it sends the next request.
 
 ``correct``: a sample of the pool's requests, drawn from the seed, is
 caught where the window serves it first: the disparity the client received,
@@ -19,7 +19,12 @@ import torch
 
 from portbench import compare, traffic
 from portbench.reference import model as reference
-from portbench.reference.ops import pad_to
+from portbench.reference.ops import CONTROL_DTYPE, pad_to
+
+# The calls ``--trace 1`` profiles.
+traced_calls = 3
+# The faults ``control`` knows, each in the program's place.
+FAULTS = ("fp8",)
 
 
 class Pairs:
@@ -144,3 +149,28 @@ class Pairs:
         self._free()
         numbers = {n: max(r[n] for r in rows) for n in rows[0]}
         return numbers, {"pairs_compared": len(rows)}
+
+
+Kind = Pairs
+
+
+def control(cell: dict, seed: int, device, faults: list[str], overrides: dict | None = None,
+            log=lambda msg: None) -> dict:
+    """The cell's numbers for the fp8 reference against the fp32 one, on the
+    requests a run with ``seed`` samples (``faults``: ``fp8`` alone)."""
+    kind = Pairs(cell, seed, device, overrides)
+    pool = traffic.pairs(kind.mix, seed, device)
+    ref = reference.build(kind.model_cfg, device, kind.weights_seed)
+    low = reference.build(kind.model_cfg, device, kind.weights_seed, cdt=CONTROL_DTYPE)
+    rows = []
+    with torch.no_grad():
+        for k in kind.sample:
+            for b in range(pool[k][0].shape[0]):
+                pair = [pad_to(torch.as_tensor(x[b:b + 1], device=device).float())[0]
+                        for x in pool[k]]
+                t32, t8 = {}, {}
+                d32 = ref(*pair, kind.iters, test_mode=True, taps=t32)
+                d8 = low(*pair, kind.iters, test_mode=True, taps=t8)
+                rows.append({"disp_mae_px": compare.mean_abs(d8, d32),
+                             **compare.filter_numbers(t8["classifier"], t32["classifier"])})
+    return {"fp8": {n: max(r[n] for r in rows) for n in rows[0]}}

@@ -1,5 +1,12 @@
-"""Cells of training: the program's ``Trainer.train_step`` on a pool of
-batches cycled from the seed, each step ended by a synchronize.
+"""The kind ``train_batches``: the program's ``Trainer.train_step`` on a
+pool of batches cycled from the seed, each step ended by a synchronize.
+
+On N > 1 ranks (a cell of N chips) the mix's batch is the global batch:
+each rank steps on its rows of it, as ``distributed.local_slice`` of the
+program cuts them (rank r: rows [r b, (r + 1) b), b = batch / N), under the
+trainer's data-parallel step (no mesh set: every rank on ``data``), with
+the same dropout key on every rank. A call counts the global batch's
+samples.
 
 Set-up builds one train state from the benchmark's weights and drives it
 through its first two steps with the window's own call, on two different
@@ -19,8 +26,11 @@ first step's gradient as the optimizer received it (read back from AdamW's
 first moment after one step), and the change of the parameters and of
 their EMA over the two steps, leaf by leaf. Leaves whose reference gradient
 is under a thousandth of the median leaf's (a bias before a normalisation:
-zero but for rounding) are left out. The cell's details say which numbers
-are held.
+zero but for rounding) are left out. On N ranks each rank's numbers are
+its own rows' against the data-parallel reference's
+(``reference/data_parallel.py``), with ``replica_gap`` besides: the largest
+relative gap of a rank's parameters, EMA and running statistics from rank
+0's after the two steps. The cell's details say which numbers are held.
 """
 
 from __future__ import annotations
@@ -30,13 +40,19 @@ import gc
 
 import torch
 
-from portbench import compare, traffic
+from portbench import compare, ranks, traffic
+from portbench.reference import data_parallel
 from portbench.reference import model as reference
+from portbench.reference.ops import CONTROL_DTYPE
 from portbench.reference.train import Step, dropout_seed
 
 # The steps of set-up that the reference follows: two, so that the fp32
 # reference (about 20 s a step on the H100) stays shorter than the window.
 FIRST_STEPS = 2
+# The calls ``--trace 1`` profiles.
+traced_calls = 2
+# The faults ``control`` knows, each in the program's place.
+FAULTS = ("fp8", "half_batch", "own_gradient")
 
 
 class Training:
@@ -46,6 +62,10 @@ class Training:
         self.mix = dict(cell["mix"], **(overrides or {}).get("mix", {}))
         self.details, self.seed, self.device = cell["details"], seed, torch.device(device)
         self.weights_seed = traffic.substream(seed, "weights")
+        self.world = ranks.world()
+        if self.mix["batch"] % self.world:
+            raise ValueError(f"a global batch of {self.mix['batch']} does not split over "
+                             f"{self.world} ranks")
         self.trainer = self.state = None
         self.first: dict = {"loss": []}
 
@@ -63,8 +83,13 @@ class Training:
                     self.state.ema[n].copy_(p)
             self._free()
         with parts("traffic"):
-            self.pool = traffic.train_batches(self.mix, self.seed, self.device,
-                                              list(self.recipe["loss"]))
+            self.pool = self._global_pool()
+            if self.world > 1:      # this rank's rows, as the program cuts them
+                from foundationstereo_torch.parallel import distributed
+
+                self.pool = [{k: v if k == "rng" else v.clone() for k, v in
+                              distributed.local_slice(batch).items()} for batch in self.pool]
+                self._free()
         opt = self.state.optimizer.optimizer
         beta1 = opt.param_groups[0]["betas"][0]
         trained = {n: p for n, p in self.state.model.named_parameters() if p.requires_grad}
@@ -81,6 +106,12 @@ class Training:
                         for n, p in trained.items()}
         self.first["params"] = {n: p.detach().to("cpu", copy=True) for n, p in trained.items()}
         self.first["ema"] = {n: self.state.ema[n].to("cpu", copy=True) for n in trained}
+        if self.world > 1:
+            self.first["replica_gap"] = ranks.replica_gap(
+                replicated(self.state.model, self.state.ema, trained), self.device)
+
+    def _global_pool(self) -> list[dict]:
+        return traffic.train_batches(self.mix, self.seed, self.device, list(self.recipe["loss"]))
 
     def _free(self) -> None:
         gc.collect()
@@ -89,7 +120,7 @@ class Training:
 
     def call(self, i: int) -> int:
         """Step on batch ``i + 2`` of the pool (the warm-up's two steps take
-        batches 0 and 1); returns the samples stepped."""
+        batches 0 and 1); returns the samples stepped (the global batch's)."""
         batch = self.pool[(i + FIRST_STEPS) % len(self.pool)]
         self.state, self.metrics = self.trainer.train_step(self.state, batch)
         if self.device.type == "cuda":
@@ -103,8 +134,9 @@ class Training:
         return self.mix["batch"]
 
     def shape(self) -> dict:
+        """A rank's step: its batch, the crop and the refinement steps."""
         w, h = self.mix["crop_wh"]
-        return {"batch": self.mix["batch"], "height": h, "width": w,
+        return {"batch": self.mix["batch"] // self.world, "height": h, "width": w,
                 "iters": self.recipe["model"]["train_iters"]}
 
     def flops_per_item(self) -> float:
@@ -118,7 +150,8 @@ class Training:
         self._free()
 
     def check(self, log) -> tuple[dict, dict]:
-        ref = reference_steps(self.recipe, self.pool, self.device, self.weights_seed,
+        pool = self._global_pool() if self.world > 1 else self.pool
+        ref = reference_steps(self.recipe, pool, self.device, self.weights_seed,
                               judge=(self.first["outputs"],), log=log)
         p0 = ref.pop("p0")
         prog = {"loss": self.first["loss"], "grad": self.first["grad"],
@@ -126,7 +159,22 @@ class Training:
                 "ema": {n: self.first["ema"][n] - p0[n] for n in ref["grad"]}}
         numbers = dict(forward_numbers(self.first["outputs"], ref["outputs"], log),
                        **ref["blocks"][0], **step_numbers(prog, ref, log))
+        if self.world > 1:
+            numbers["replica_gap"] = self.first["replica_gap"]
         return numbers, {"leaves": len(ref["grad"])}
+
+
+Kind = Training
+
+
+def replicated(model, ema: dict, trained) -> dict[str, torch.Tensor]:
+    """What every rank holds alike after a data-parallel step: the trained
+    parameters, their EMA and the batch norms' running statistics."""
+    out = {n: p for n, p in model.named_parameters() if n in trained}
+    out.update({f"ema.{n}": ema[n] for n in trained})
+    out.update({n: b for n, b in model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))})
+    return out
 
 
 def judged(model) -> dict[str, str]:
@@ -139,7 +187,7 @@ def judged(model) -> dict[str, str]:
     stack = [f"cost_agg.{n}" for n, m in model.cost_agg.named_modules()
              if type(m).__name__ == "BasicConv"
              or (isinstance(m, torch.nn.Sequential)
-                 and any(type(c).__name__ == "BatchNorm" for c in m.children()))]
+                 and any(type(c).__name__.endswith("BatchNorm") for c in m.children()))]
     return dict({n: "filter_block_rel" for n in stack},
                 classifier="classifier_rel", update_block="update_rel")
 
@@ -177,7 +225,7 @@ def catching(model):
 
 def reference_steps(recipe: dict, pool: list[dict], device, weights_seed: int,
                     cdt: torch.dtype = torch.float32, half_batch: bool = False,
-                    judge: tuple[dict, ...] = (), catch: bool = False,
+                    average: bool = True, judge: tuple[dict, ...] = (), catch: bool = False,
                     log=lambda msg: None) -> dict:
     """The reference's first ``FIRST_STEPS`` steps on the pool's first
     batches: their losses, the first step's clipped gradient and forward
@@ -187,15 +235,25 @@ def reference_steps(recipe: dict, pool: list[dict], device, weights_seed: int,
     of caught blocks in ``judge`` is judged on the reference's weights
     (``blocks``, one dict of numbers each). Each refinement step is
     recomputed in the backward, which changes no number and keeps the fp32
-    steps within the card's memory."""
+    steps within the card's memory. On N > 1 ranks it is the data-parallel
+    reference on this rank's rows of the pool's global batches (with
+    ``average`` False, the gradients are not averaged: a fault), and
+    ``replica_gap`` its states' gap from rank 0's after the steps."""
+    world, rank = ranks.world(), ranks.rank()
     model = reference.build(recipe["model"], device, weights_seed, cdt=cdt)
     model.remat = True
+    if world > 1:
+        data_parallel.convert(model)
     p0 = {n: p.detach().to("cpu", copy=True) for n, p in model.named_parameters()}
     blocks = [block_numbers(model, caught["blocks"], device, log) for caught in judge]
-    step = Step(model, recipe)
+    step = data_parallel.Step(model, recipe, average) if world > 1 else Step(model, recipe)
     losses, grad, outputs = [], None, None
     for k in range(FIRST_STEPS):
         batch = pool[k]
+        if world > 1:
+            b = batch["left"].shape[0] // world
+            batch = {key: (v if key == "rng" else v[rank * b:(rank + 1) * b])
+                     for key, v in batch.items()}
         if half_batch:
             n = batch["left"].shape[0] // 2
             batch = {key: (v if key == "rng" else v[:n]) for key, v in batch.items()}
@@ -208,12 +266,15 @@ def reference_steps(recipe: dict, pool: list[dict], device, weights_seed: int,
     change = {n: p.detach().to("cpu", copy=True) - p0[n] for n, p in model.named_parameters()
               if n in grad}
     ema = {n: step.ema[n].to("cpu", copy=True) - p0[n] for n in grad}
+    out = {"loss": losses, "grad": grad, "change": change, "ema": ema, "p0": p0,
+           "outputs": outputs, "blocks": blocks}
+    if world > 1:
+        out["replica_gap"] = ranks.replica_gap(replicated(model, step.ema, grad), device)
     del model, step
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
-    return {"loss": losses, "grad": grad, "change": change, "ema": ema, "p0": p0,
-            "outputs": outputs, "blocks": blocks}
+    return out
 
 
 def host(x):
@@ -238,7 +299,8 @@ def block_numbers(model, caught: dict, device, log=lambda msg: None) -> dict:
     buffers = {n: b.clone() for n, b in model.named_buffers()}
     model.train()
     gaps, numbers = {}, {}
-    for name, (args, out) in caught.items():
+    for name in judged(model):      # in one order on every rank: their batch norms meet
+        args, out = caught[name]
         ref = model.get_submodule(name)(*[_to(a, device) for a in args])
         gaps[name] = [compare.rel_l2(p, r.cpu()) for p, r in zip(_flat(out), _flat(ref))]
     for n, b in model.named_buffers():
@@ -294,3 +356,31 @@ def step_numbers(prog: dict, ref: dict, log) -> dict:
     log(f"losses: program {prog['loss']} reference {ref['loss']}; {len(gnorm) - len(moving)} "
         f"of {len(gnorm)} leaves left out (reference gradient under 1e-3 of the median leaf's)")
     return numbers
+
+
+def control(cell: dict, seed: int, device, faults: list[str], overrides: dict | None = None,
+            log=lambda msg: None) -> dict:
+    """The cell's numbers for a faulty reference in the program's place
+    against the fp32 reference over the steps set-up takes (the first
+    step's forward outputs, its judged blocks and the steps' numbers), by
+    fault: ``fp8`` (the reference in fp8), ``half_batch`` (each step on the
+    first half of its batch, the mean taken over it) or, on N > 1 ranks,
+    ``own_gradient`` (each rank's update from its own gradient, with
+    ``replica_gap``). ``log`` receives each judged block's gap."""
+    kind = Training(cell, seed, device, overrides)
+    pool = kind._global_pool()
+    bad = {fault: reference_steps(kind.recipe, pool, device, kind.weights_seed,
+                                  cdt=CONTROL_DTYPE if fault == "fp8" else torch.float32,
+                                  half_batch=fault == "half_batch",
+                                  average=fault != "own_gradient", catch=True)
+           for fault in faults}
+    ref = reference_steps(kind.recipe, pool, device, kind.weights_seed,
+                          judge=tuple(bad[f]["outputs"] for f in faults), log=log)
+    quiet = lambda msg: None  # noqa: E731
+    out = {}
+    for i, fault in enumerate(faults):
+        out[fault] = dict(forward_numbers(bad[fault]["outputs"], ref["outputs"], quiet),
+                          **ref["blocks"][i], **step_numbers(bad[fault], ref, quiet))
+        if "replica_gap" in bad[fault]:
+            out[fault]["replica_gap"] = bad[fault]["replica_gap"]
+    return out

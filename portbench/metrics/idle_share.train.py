@@ -1,5 +1,6 @@
 """The share of the traced calls' window in which no device operation ran,
-in %: 1 - (union of the profiler's kernel and copy intervals) / window."""
+in %: 1 - (union of the profiler's kernel and copy intervals) / window; on
+N ranks the union is the mean over the ranks' cards, the window rank 0's."""
 
 
 def read(rec):

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 
 FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+# The precision the controls compute in, the step below a bf16 configuration.
+CONTROL_DTYPE = torch.float8_e4m3fn
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 

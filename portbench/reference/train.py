@@ -97,6 +97,11 @@ class Step:
         self.ema = {n: p.detach().clone() for n, p in model.named_parameters()}
         self.decay, self.count = ema_decay, 0
 
+    def over_ranks(self, loss, grads):
+        """The loss and gradients the update uses: this process's own
+        (``data_parallel.Step`` averages them over the ranks)."""
+        return loss, grads
+
     def __call__(self, batch: dict, iters: int, seed: int) -> dict:
         """One step on ``batch``; ``seed`` seeds the dropout generator.
         Returns the loss, the clipped gradients as the update used them, and
@@ -111,6 +116,7 @@ class Step:
             loss = composite_loss(self.loss_cfg, init_disp, preds, batch["disparity"],
                                   batch["mask"], batch["label_idx"])
         grads = torch.autograd.grad(loss, list(self.params.values()))
+        loss, grads = self.over_ranks(loss.detach(), grads)
         gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
         clipped = {}
         with torch.no_grad():

@@ -2,15 +2,20 @@
 
 - a cell's details (what it compares and at which limits): ``workloads/<cell>.json``
 - a configuration: the ``file`` its entry names
-- a traffic mix: ``traffic/<mix>.json``
+- a traffic mix: ``traffic/<mix>.json``, whose ``kind`` names its kind
+- a kind of traffic: ``kinds/<kind>.py`` (a Python name), with ``Kind``, the
+  class that sets a cell of the kind up, calls it and checks it, its
+  ``control`` and ``traced_calls``, the calls ``--trace 1`` profiles
 - a metric's reader: ``metrics/<metric>.py``, whose ``read(record)`` returns
   the metric's value or None where the run has nothing to read.
 
-A later cell, configuration, mix or metric is new files and new entries.
+A later cell, configuration, mix, kind or metric is new files and new
+entries.
 """
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -66,3 +71,10 @@ def reader(metric: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def kind(name: str):
+    """The module ``kinds/<name>.py`` of a traffic kind."""
+    if not name.isidentifier():
+        raise ValueError(f"a kind is named as a Python module, not {name!r}")
+    return importlib.import_module(f"portbench.kinds.{name}")

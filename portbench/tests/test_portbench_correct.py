@@ -61,7 +61,7 @@ def test_reference_train_step_matches_the_program():
     """The first step's loss of the program (plain path, fp32) and of the
     reference, from the same weights, batch and dropout key."""
     result_numbers = {}
-    from portbench import training
+    from portbench.kinds import train_batches as training
 
     kind = training.Training(spec.cell("train-vitl-b4"), 3, "cpu", TRAIN)
     kind.setup(run.Parts())
@@ -185,7 +185,7 @@ def test_pairs_control_reads_above_the_program():
     """At the tiny size the fp8 reference in the program's place reads several
     times what the program does (at the cell's own size it fails the limits:
     ``test_controls_fail_the_limits_on_the_card``)."""
-    numbers = control.pairs_control(spec.cell("pair-vitl-b1"), 3, torch.device("cpu"), PAIRS)
+    numbers = control.controls("pair-vitl-b1", [3], ["fp8"], "cpu", PAIRS)[3]["fp8"]
     sound = _run("pair-vitl-b1", PAIRS, seed=3)["checks"]
     for name, c in sound.items():
         assert numbers[name] > 3 * c["value"], name
@@ -193,8 +193,7 @@ def test_pairs_control_reads_above_the_program():
 
 @pytest.mark.parametrize("fault", ["fp8", "half_batch"])
 def test_train_control_reads_above_the_program(fault):
-    numbers = control.train_control(spec.cell("train-vitl-b4"), 3, torch.device("cpu"),
-                                    [fault], TRAIN)[fault]
+    numbers = control.controls("train-vitl-b4", [3], [fault], "cpu", TRAIN)[3][fault]
     sound = _run("train-vitl-b4", TRAIN, seed=3)["checks"]
     above = {n for n, c in sound.items() if numbers[n] > 3 * c["value"]}
     blocks = {"filter_block_rel", "classifier_rel", "update_rel"}
@@ -202,24 +201,22 @@ def test_train_control_reads_above_the_program(fault):
     assert expected <= above, (numbers, sound)
 
 
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the controls at the cells' own sizes")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
-
-
 @pytest.mark.gpu
-@pytest.mark.parametrize("cell", ["pair-vitl-b1", "pair-vitl-b4", "train-vitl-b4"])
-def test_controls_fail_the_limits_on_the_card(card, cell):
-    """The control of each cell at its own size, on three seeds: every one
-    fails at least one of the cell's limits."""
-    c, limits = spec.cell(cell), _limits(cell)
-    for seed in (11, 2222222222, 4294967311):
-        if c["mix"]["kind"] == "pairs":
-            numbers = control.pairs_control(c, seed, card)
-        else:
-            numbers = control.train_control(c, seed, card, ["fp8"])["fp8"]
-        assert any(numbers[n] > lim for n, lim in limits.items()), (cell, seed, numbers)
+@pytest.mark.parametrize("cell", [w["name"] for w in spec.benchmark()["workloads"]])
+def test_controls_fail_the_limits_on_the_card(cell):
+    """The control of each cell at its own size and on its own chips, on
+    three seeds: every one fails at least one of the cell's limits; on N > 1
+    ranks so do the half batch and each rank's update from its own gradient.
+    With ``-s`` it prints the numbers."""
+    chips = spec.cell(cell)["chips"]
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA card(s): the controls at the cells' own sizes")
+    limits = _limits(cell)
+    faults = ["fp8", "half_batch", "own_gradient"] if chips > 1 else ["fp8"]
+    seeds = [11, 2222222222, 4294967311]
+    by_seed = control.controls(cell, seeds, faults, "cuda")
+    for seed in seeds:
+        for fault in faults:
+            numbers = by_seed[seed][fault]
+            print(cell, seed, fault, {n: numbers[n] for n in limits}, flush=True)
+            assert any(numbers[n] > lim for n, lim in limits.items()), (cell, seed, fault, numbers)

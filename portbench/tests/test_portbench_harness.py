@@ -43,7 +43,9 @@ def test_every_name_in_benchmark_json_has_its_files():
     bench = spec.benchmark()
     for cell in bench["workloads"]:
         c = spec.cell(cell["name"], bench)
-        assert c["mix"]["kind"] in ("pairs", "train_batches")
+        kind = spec.kind(c["mix"]["kind"])
+        assert callable(kind.Kind) and callable(kind.control) and kind.traced_calls >= 1
+        assert kind.FAULTS
         assert set(c["details"]["checks"]), cell["name"]
         reported = spec.metrics(cell["name"], False, bench)
         assert "setup_s" in {m["name"] for m in reported}
@@ -64,9 +66,9 @@ def test_per_layer_metrics_move_a_metric_their_cells_report():
 
 
 def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
-    """A cell with its own mix, details and a per-layer metric of its own,
-    added to a copy of the benchmark as files and entries, runs without an
-    edit to any file already there."""
+    """A cell with its own mix of a kind of its own, details and a per-layer
+    metric of its own, added to a copy of the benchmark as files and
+    entries, runs without an edit to any file already there."""
     shutil.copytree(HERE, tmp_path / "portbench", ignore=shutil.ignore_patterns("__pycache__"))
     bench = spec.benchmark()
     before = {p: p.read_bytes() for p in (tmp_path / "portbench").rglob("*") if p.is_file()}
@@ -78,11 +80,23 @@ def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
     bench["end_to_end"][0]["workloads"].append("pair-new")
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     (tmp_path / "portbench/traffic/pairs-new.json").write_text(json.dumps(
-        {"kind": "pairs", "batch": 2, "height": 64, "width": 96, "pool": 2}))
+        {"kind": "pairs_counted_twice", "batch": 2, "height": 64, "width": 96, "pool": 2}))
+    (tmp_path / "portbench/kinds/pairs_counted_twice.py").write_text(
+        "from portbench.kinds.pairs import FAULTS, Pairs, control  # noqa: F401\n"
+        "traced_calls = 1\n"
+        "class Kind(Pairs):\n"
+        "    def call(self, i, probe=False):\n"
+        "        return 2 * super().call(i, probe)\n")
     (tmp_path / "portbench/workloads/pair-new.json").write_text(json.dumps(
         {"sample": 1, "checks": {"disp_mae_px": 1.0, "logits_rel": 1.0}}))
     (tmp_path / "portbench/metrics/calls_in_window.py").write_text(
         "def read(rec):\n    return float(rec['window']['calls'])\n")
+    bench["per_layer"].append({"name": "items_per_call", "unit": "pairs", "better": "higher",
+                               "source": "host_clock", "layer": "the whole pair",
+                               "moves": "pairs_per_s", "workloads": ["pair-new"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    (tmp_path / "portbench/metrics/items_per_call.py").write_text(
+        "def read(rec):\n    return rec['window']['items'] / rec['window']['calls']\n")
     code = ("import json; from portbench import run; r = run.run_cell('pair-new', 7, 1.0, True, "
             f"device='cpu', overrides={{'model': {TINY_MODEL!r}, 'iters': 1}}); print(json.dumps(r))")
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, capture_output=True, text=True,
@@ -90,6 +104,7 @@ def test_a_new_cell_mix_and_metric_are_new_files_only(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["metrics"]["calls_in_window"]["value"] >= 1
+    assert result["metrics"]["items_per_call"]["value"] == 4      # the new kind's count
     assert result["correct"] is True
     after = {p: p.read_bytes() for p in before}
     assert after == before
@@ -171,8 +186,33 @@ def test_shares_cannot_pass_100_by_construction():
     rec["trace"]["device_time_by_name"] = {"other": 1.0}
     assert read(rec) is None
     for name in ("mfu.serve", "mfu.train", "idle_share.serve", "module_ms.update_block",
-                 "step_ms.backward"):
+                 "step_ms.backward", "comm_ms.train"):
         assert spec.reader(name)({"kind": "none", "window": {}}) is None
+
+
+def test_mfu_divides_by_the_cells_chips():
+    read = spec.reader("mfu.train")
+    rec = {"kind": "train_batches", "flops_per_item": counting.PEAK_BF16_FLOPS / 100,
+           "window": {"items": 8, "seconds": 2.0}}
+    assert read(rec) == pytest.approx(4.0)
+    assert read(dict(rec, chips=4)) == pytest.approx(1.0)
+
+
+def test_collectives_read_the_nccl_kernels_per_step():
+    read = spec.reader("comm_ms.train")
+    times = {"ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage<4096ul>)": 0.003,
+             "ncclKernel_Broadcast_RING_LL_Sum_int8_t(ncclDevComm*, unsigned long, ncclWork*)": 0.001,
+             "nccl:all_reduce": 0.5, "flash_fwd_kernel": 1.0}
+    rec = {"kind": "train_batches", "trace": {"calls": 2, "device_time_by_name": times}}
+    assert read(rec) == pytest.approx(2.0)
+    rec["trace"]["device_time_by_name"] = {"nccl:all_reduce": 0.5, "flash_fwd_kernel": 1.0}
+    assert read(rec) is None
+
+
+def test_run_names_no_kind():
+    text = (HERE / "run.py").read_text()
+    for name in ("pairs", "train_batches"):
+        assert f'"{name}"' not in text and f"'{name}'" not in text
 
 
 # -- the trace reduction --------------------------------------------------------

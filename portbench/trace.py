@@ -44,6 +44,14 @@ def host_label(host: list[tuple[str, float, float]], t: float) -> str:
     return best[0] if best else "(no host operation: Python between calls)"
 
 
+def collectives_s(by_name: dict[str, float]) -> float:
+    """Device seconds of the NCCL kernels in ``device_time_by_name``: names
+    that start with ``nccl``, but not the ``nccl:`` annotations that the
+    profiler also draws on the device's timeline."""
+    return sum(t for name, t in by_name.items()
+               if name.startswith("nccl") and not name.startswith("nccl:"))
+
+
 def reduce(device: list[tuple[str, float, float]], host: list[tuple[str, float, float]],
            lo: float, hi: float, top: int = 10) -> dict:
     """Times in seconds. ``device``/``host``: (name, start, end) on one clock;
